@@ -108,3 +108,206 @@ def test_topk_matches_plain(dev):
                        sort_topk.sort_plain(*spec)[:25])
     assert torch.equal(sort_topk._sort_cuda(*spec)[:cap],
                        sort_topk.sort_plain(*spec))
+
+
+# -- the join kernels (K5a join_probe, K5b join_expand, K2's LOADG, K7) ------
+
+def _index(keys_np, nulls_np=None, sorted_layout=False):
+    """A host join index over int64 key columns (executor/join_index.py)."""
+    from tidb_tpu_torch.executor.join_index import build_join_index
+    from tidb_tpu_torch.sqltypes import TYPE_LONGLONG, FieldType
+    from tidb_tpu_torch.utils.chunk import Column
+    cols = [Column(FieldType(tp=TYPE_LONGLONG), np.asarray(k, np.int64),
+                   np.zeros(len(k), bool) if nulls_np is None
+                   else nulls_np) for k in keys_np]
+    return build_join_index(cols, force_sorted=sorted_layout)
+
+
+def _same(a, b, what):
+    if isinstance(a, dict):
+        assert set(a) == set(b), what
+        for k in a:
+            _same(a[k], b[k], f"{what}.{k}")
+        return
+    if isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{what}[{i}]")
+        return
+    assert torch.equal(a.cpu(), b.cpu()), what
+
+
+@pytest.mark.parametrize("layout,mode,kind", [
+    ("dense", "uniq", "inner"), ("dense", "uniq", "left"),
+    ("dense", "count", "inner"), ("dense", "exists", "anti"),
+    ("sorted", "uniq", "semi"), ("sorted", "count", "inner"),
+    ("sorted", "exists", "semi")])
+def test_join_probe_matches_plain(dev, layout, mode, kind):
+    from tidb_tpu_torch.ops.kernels import join_probe
+    rng = np.random.default_rng(4)
+    nb, n = 50_000, 300_007
+    minor = (rng.integers(0, 4, nb) if layout == "sorted"
+             else np.zeros(nb, np.int64))
+    if mode == "uniq":
+        bkeys = [rng.permutation(nb) * 3 + 5, minor]
+    else:
+        bkeys = [rng.integers(0, nb // 2, nb), minor]
+    if layout == "dense":
+        bkeys[0] = bkeys[0] // 3  # a span within 4x the rows
+    idx = _index(bkeys, sorted_layout=layout == "sorted")
+    assert idx.kind == layout
+    a0 = _up(idx.starts if layout == "dense" else idx.sorted_keys, dev)
+    a1, nv = _up(idx.rows, dev), idx.n_valid
+    keys = [_up(rng.integers(-10, 3 * nb + 10, n), dev),
+            _up(rng.integers(-1, 5, n), dev)]
+    knulls = [_up(rng.random(n) < 0.05, dev), None]
+    pvalid = _up(rng.random(n) < 0.9, dev)
+    bvalid = _up(rng.random(nb) < 0.95, dev)
+    args = (keys, knulls, pvalid, idx.packs, a0, a1, nv)
+    kw = dict(layout=layout, mode=mode, kind=kind, bvalid=bvalid,
+              dense_span=idx.span)
+    got = join_probe.probe(*args, **kw)
+    want = join_probe.probe_plain(*args, layout, mode, kind, bvalid, None,
+                                  idx.span)
+    _same(got, want, f"{layout}/{mode}/{kind}")
+    if mode != "count":
+        flag = got.get("hit", got["valid"])
+        _same(list(join_probe.finish(pvalid, flag, kind)),
+              list(join_probe.finish_plain(pvalid, flag.cpu().to(dev),
+                                           kind)), "finish")
+
+
+def test_key_range_matches_plain(dev):
+    from tidb_tpu_torch.ops.kernels import join_probe
+    rng = np.random.default_rng(5)
+    n, m = 100_000, 40_000
+    lk = [_up(rng.integers(-5, 900, n), dev),
+          _up(rng.integers(10, 20, n), dev)]
+    rk = [_up(rng.integers(0, 1000, m), dev),
+          _up(rng.integers(0, 15, m), dev)]
+    ln = [_up(rng.random(n) < 0.03, dev) for _ in lk]
+    rn = [_up(rng.random(m) < 0.03, dev) for _ in rk]
+    lv, rv = _up(rng.random(n) < 0.9, dev), _up(rng.random(m) < 0.9, dev)
+    for k in (1, 2):
+        got = join_probe.key_range(lk[:k], ln[:k], lv, rk[:k], rn[:k], rv)
+        want = join_probe.key_range_plain(lk[:k], ln[:k], lv, rk[:k], rn[:k],
+                                          rv)
+        _same(list(got), list(want), f"{k} keys")
+    big = [_up(np.array([-(1 << 62), 1 << 62] * 50), dev)] * 2
+    z = _up(np.zeros(100, bool), dev)
+    o = _up(np.ones(100, bool), dev)
+    got = join_probe.key_range(big, [z, z], o, big, [z, z], o)
+    assert bool(got[4]) and bool(join_probe.key_range_plain(
+        big, [z, z], o, big, [z, z], o)[4])
+
+
+@pytest.mark.parametrize("case", ["inner", "left", "total_over_cap"])
+def test_join_expand_matches_plain(dev, case):
+    from tidb_tpu_torch.ops.kernels import join_expand
+    rng = np.random.default_rng(6)
+    n, nb = 200_003, 90_000
+    cnt = rng.integers(0, 5, n)
+    cnt[7] = 3000  # a hot key
+    pos0 = rng.integers(0, nb - 3100, n)
+    a1 = _up(rng.permutation(nb).astype(np.int32), dev)
+    pvalid = _up(rng.random(n) < 0.9, dev)
+    bvalid = _up(rng.random(nb) < 0.9, dev)
+    total = int(cnt.sum())
+    cap = total // 2 if case == "total_over_cap" else total + 4096
+    pm = [_up(rng.integers(0, 10**6, n), dev), _up(rng.random(n) < 0.1, dev)]
+    bm = [_up(rng.integers(0, 10**6, nb), dev)]
+    args = (_up(cnt, dev), _up(pos0, dev), pvalid, a1, nb, bvalid, cap)
+    kw = dict(left=case == "left", probe_maps=pm, build_maps=bm)
+    got = join_expand.expand(*args, **kw)
+    want = join_expand.expand_plain(*args, kw["left"], pm, bm)
+    _same(got, want, case)
+    if case == "total_over_cap":
+        assert int(got["total"]) == total > cap
+    mask = _up(rng.random(n) < 0.3, dev)
+    _same(join_expand.compact(mask, 1 << 17, pm),
+          join_expand.expand_plain(None, None, None, None, 0, None, 1 << 17,
+                                   probe_maps=pm, cmask=mask), "compact")
+    assert int(join_expand.count(mask)) == int(mask.sum())
+
+
+def test_expr_vm_loadg_matches_interpreter(dev):
+    rng = np.random.default_rng(7)
+    n, m = 150_001, 40_000
+    price = _up(rng.integers(90000, 10_500_000, n), dev)
+    disc = _up(rng.integers(0, 11, n), dev)
+    date = _up(rng.integers(8000, 10000, m).astype(np.int32), dev)
+    nul_n, nul_m = (_up(rng.random(n) < 0.05, dev),
+                    _up(rng.random(m) < 0.05, dev))
+    bi = _up(rng.integers(0, m, n), dev)
+    ext = _up(rng.random(n) < 0.1, dev)
+    valid = _up(rng.random(n) < 0.8, dev)
+    p, d, dt, v = (expr_vm.load(0, "i"), expr_vm.load(1, "i"),
+                   expr_vm.load(2, "i"), expr_vm.load(3, "i"))
+    rev = expr_vm.arith("mul", p, expr_vm.arith(
+        "sub", expr_vm.const(100, "i"), d))
+    cond = expr_vm.cmp("lt", dt, expr_vm.const(9000, "i"))
+    prog = expr_vm.Program.build([v, cond], [dt], [(rev, "raw"), (p, "raw")])
+    zeros = torch.zeros(n, dtype=torch.bool, device=dev)
+    inputs = [(price, nul_n), (disc, nul_n), (date, nul_m, bi, ext),
+              (valid, zeros)]
+    mk, ok = expr_vm.run(prog, inputs, n, n, dev)
+    mp, op = expr_vm.interpret(prog, inputs, n, n, dev)
+    assert torch.equal(mk, mp)
+    for (a, an), (b, bn) in zip(ok, op):
+        assert torch.equal(an, bn)
+        assert torch.equal(a, b)
+    # a gathered input is never handed on
+    assert ok[prog.key_slots[0]][0].data_ptr() != date.data_ptr()
+
+
+def test_device_join_match_matches_plain(dev):
+    from tidb_tpu_torch.ops import device as pdev
+    rng = np.random.default_rng(8)
+    bk = rng.integers(0, 5000, 30_000)
+    bn = rng.random(30_000) < 0.02
+    pk = rng.integers(-100, 5100, 70_000)
+    pn = rng.random(70_000) < 0.02
+    try:
+        pdev.set_device("cuda")
+        got = pdev.device_join_match((bk, bn), (pk, pn))
+        pdev.set_device("cpu")
+        want = pdev.device_join_match((bk, bn), (pk, pn))
+    finally:
+        pdev.set_device("cuda")
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    assert len(got[0]) > 0
+
+
+def test_join_kernels_edge_cases(dev):
+    """Empty indexes, no matches, one probe row, all rows invalid: the
+    kernels launch (or return) cleanly and equal their plain versions."""
+    from tidb_tpu_torch.ops.kernels import join_expand, join_probe
+    i64max = np.iinfo(np.int64).max
+    pad = _up(np.full(8, i64max), dev)          # a sorted index, n_valid 0
+    rows = _up(np.zeros(8, np.int32), dev)
+    key = [_up(np.array([i64max, 0, 5]), dev)]
+    for mode in ("uniq", "count", "exists"):
+        args = (key, None, None, None, pad, rows, 0)
+        got = join_probe.probe(*args, layout="sorted", mode=mode,
+                               kind="anti")
+        want = join_probe.probe_plain(*args, "sorted", mode, "anti")
+        _same(got, want, f"empty index {mode}")
+    one = _up(np.array([3]), dev)
+    zero = _up(np.array([0]), dev)
+    a1 = _up(np.arange(8, dtype=np.int64), dev)
+    for cnt, cap, left in ((zero, 16, False), (zero, 16, True),
+                           (one, 2, False), (one, 0, True)):
+        args = (cnt, zero, None, a1, 8, None, cap)
+        _same(join_expand.expand(*args, left=left),
+              join_expand.expand_plain(*args, left), f"expand {cap}")
+    none = _up(np.zeros(5, bool), dev)
+    _same(join_expand.compact(none, 8),
+          join_expand.expand_plain(None, None, None, None, 0, None, 8,
+                                   cmask=none), "compact none")
+    assert int(join_expand.count(none)) == 0
+    k2 = [_up(np.array([1, 2, 3, 4, 5]), dev)] * 2
+    got = join_probe.key_range(k2, [none, none], none, k2, [none, none],
+                               none)
+    want = join_probe.key_range_plain(k2, [none, none], none, k2,
+                                      [none, none], none)
+    _same(list(got), list(want), "range, nothing valid")

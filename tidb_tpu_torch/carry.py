@@ -12,7 +12,10 @@ and compare their answers:
 * :func:`to_torch` — the numpy argument tree of ``_agg_kernel`` /
   ``_topk_indices`` as tensors on a device;
 * :func:`gen_lineitem` — the TPC-H-shaped ``lineitem`` generator of the
-  reference benchmark (``bench.py gen_all``), seeded.
+  reference benchmark (``bench.py gen_all``), seeded;
+* :func:`gen_tpch` / :func:`install_tpch` — all eight TPC-H-shaped tables
+  of that generator, drawn as it draws them, with their DDL, the
+  ``nation`` / ``region`` rows and ANALYZE.
 """
 
 from __future__ import annotations
@@ -109,3 +112,125 @@ def to_torch(tree, device):
     if isinstance(tree, tuple):
         return tuple(to_torch(x, device) for x in tree)
     return tree
+
+
+#: the reference benchmark's eight-table schema (bench.py gen_all), in its
+#: creation order
+TPCH_DDL = (
+    LINEITEM_DDL,
+    """create table orders (
+        o_orderkey bigint primary key, o_custkey bigint,
+        o_orderdate date,
+        o_shippriority bigint, o_totalprice decimal(15,2))""",
+    """create table customer (
+        c_custkey bigint primary key, c_name varchar(25),
+        c_mktsegment varchar(10), c_nationkey bigint)""",
+    """create table supplier (
+        s_suppkey bigint primary key, s_nationkey bigint)""",
+    """create table part (
+        p_partkey bigint primary key, p_name varchar(55))""",
+    """create table partsupp (
+        ps_partkey bigint, ps_suppkey bigint,
+        ps_supplycost decimal(15,2))""",
+    """create table nation (
+        n_nationkey bigint primary key, n_name varchar(25),
+        n_regionkey bigint)""",
+    """create table region (
+        r_regionkey bigint primary key, r_name varchar(25))""",
+)
+
+TPCH_TABLES = ("lineitem", "orders", "customer", "supplier", "part",
+               "partsupp", "nation", "region")
+
+NATIONS = [
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1),
+    ("EGYPT", 4), ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3),
+    ("INDIA", 2), ("INDONESIA", 2), ("IRAN", 4), ("IRAQ", 4),
+    ("JAPAN", 2), ("JORDAN", 4), ("KENYA", 0), ("MOROCCO", 0),
+    ("MOZAMBIQUE", 0), ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3),
+    ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3),
+    ("UNITED KINGDOM", 3), ("UNITED STATES", 1),
+]
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+SEGMENTS = [b"AUTOMOBILE", b"BUILDING", b"FURNITURE", b"MACHINERY",
+            b"HOUSEHOLD"]
+_COLORS = [b"almond", b"green", b"blue", b"red", b"ivory", b"khaki",
+           b"lemon", b"linen", b"navy", b"olive", b"orchid", b"peach",
+           b"plum", b"puff", b"rose", b"salmon", b"sienna", b"snow"]
+
+
+def gen_tpch(sf: float, seed: int = 42, dim_seed: int = 7) -> dict:
+    """{table: (data, n)} for the six bulk-loaded tables at scale factor
+    `sf`, drawn in the order and with the ranges of the reference
+    benchmark's generator (``bench.py gen_all``, whose streams are seeds
+    42 for ``lineitem`` and 7 for the rest): ``lineitem`` from `seed`,
+    ``orders``, ``customer``, ``supplier``, ``part`` and ``partsupp``
+    from `dim_seed`.  ``nation`` and ``region`` are fixed rows
+    (:func:`install_tpch` inserts them)."""
+    n_orders = max(int(1_500_000 * sf), 2)
+    n_cust = max(int(150_000 * sf), 2)
+    n_supp = max(int(10_000 * sf), 4)
+    n_part = max(int(200_000 * sf), 4)
+    supp_stride = max(n_supp // 4, 1)
+    out = {"lineitem": gen_lineitem(sf, seed)}
+    rng2 = np.random.default_rng(dim_seed)
+    out["orders"] = ({
+        "o_orderkey": np.arange(1, n_orders + 1),
+        "o_custkey": rng2.integers(1, n_cust + 1, n_orders),
+        "o_orderdate": rng2.integers(_days("1992-01-01"),
+                                     _days("1998-08-02"),
+                                     n_orders).astype(np.int32),
+        "o_shippriority": np.zeros(n_orders, dtype=np.int64),
+        "o_totalprice": rng2.integers(1000_00, 400_000_00, n_orders),
+    }, n_orders)
+    cname = [f"Customer#{i:09d}".encode() for i in range(1, n_cust + 1)]
+    out["customer"] = ({
+        "c_custkey": np.arange(1, n_cust + 1),
+        "c_name": (np.arange(n_cust, dtype=np.int32), cname),
+        "c_mktsegment": (rng2.integers(0, 5, n_cust).astype(np.int32),
+                         SEGMENTS),
+        "c_nationkey": rng2.integers(0, 25, n_cust),
+    }, n_cust)
+    out["supplier"] = ({
+        "s_suppkey": np.arange(1, n_supp + 1),
+        "s_nationkey": rng2.integers(0, 25, n_supp),
+    }, n_supp)
+    pcodes = rng2.integers(0, len(_COLORS), n_part).astype(np.int32)
+    out["part"] = ({
+        "p_partkey": np.arange(1, n_part + 1),
+        "p_name": (pcodes, [c + b" anodized thing" for c in _COLORS]),
+    }, n_part)
+    n_ps = n_part * 4
+    ps_part = np.repeat(np.arange(1, n_part + 1), 4)
+    ps_slot = np.tile(np.arange(4), n_part)
+    out["partsupp"] = ({
+        "ps_partkey": ps_part,
+        "ps_suppkey": (ps_part - 1 + ps_slot * supp_stride) % n_supp + 1,
+        "ps_supplycost": rng2.integers(1_00, 1000_00, n_ps),
+    }, n_ps)
+    return out
+
+
+def install_tpch(execute, domain, db: str, tables: dict,
+                 analyze: bool = True):
+    """Create database `db` with the eight-table schema, install `tables`
+    (:func:`gen_tpch`'s output) through the bulk loader, insert the
+    ``nation`` and ``region`` rows and, with `analyze`, ANALYZE all eight
+    tables, as ``bench.py gen_all`` does (without statistics, Q5's greedy
+    join order builds a >2x-lineitem intermediate).  `execute` runs one
+    SQL statement (``session.execute`` or ``TestKit.must_exec``)."""
+    execute(f"create database if not exists {db}")
+    execute(f"use {db}")
+    for ddl in TPCH_DDL:
+        execute(ddl)
+    for name in TPCH_TABLES:
+        if name in tables:
+            data, n = tables[name]
+            install_bulk_numpy(domain, db, name, data, n)
+    for i, (nm, rk) in enumerate(NATIONS):
+        execute(f"insert into nation values ({i}, '{nm}', {rk})")
+    for i, r in enumerate(REGIONS):
+        execute(f"insert into region values ({i}, '{r}')")
+    if analyze:
+        for t in TPCH_TABLES:
+            execute(f"analyze table {t}")

@@ -8,10 +8,11 @@ one program for the mask, keys and values) and the group-by aggregate
 reads back `capacity`-bounded results.  An ORDER BY ... LIMIT over the
 groups selects its rows on the device (ops/kernels/sort_topk.py).
 
-This slice ports the whole-table scan-aggregate path.  The streamed
-aggregate, window functions and the standalone join match raise
-DeviceUnsupported until their ROADMAP queue-1 items port them, so those
-queries run on the host engine.
+The whole-table scan-aggregate path and the standalone join match
+(``device_join_keys``: K4 + K5a + K5b through ``ops/device.py
+device_join_match``) are ported.  The streamed aggregate and window
+functions raise DeviceUnsupported until their ROADMAP queue-1 item ports
+them, so those queries run on the host engine.
 """
 
 from __future__ import annotations
@@ -1017,6 +1018,29 @@ def device_window(p, chunk: Chunk, ctx=None) -> Chunk:
 
 
 def device_join_keys(lkeys, rkeys):
-    """The standalone join match (reference K7) is not in this slice."""
-    raise DeviceUnsupported("not yet ported: ROADMAP queue 1 item 3 "
-                            "(device join match)")
+    """Combine multi-column join keys into single int64 codes host-side
+    (shared factorization), then match on device. Returns (li, ri).
+
+    Single raw-int64 keys skip the factorization pass entirely — the
+    device matcher is sort-based and handles arbitrary int64 values
+    (null rows are masked by the kernel / the keep filter)."""
+    if (len(lkeys) == 1 and lkeys[0][0].dtype == np.int64
+            and rkeys[0][0].dtype == np.int64):
+        (pd, pn), = lkeys
+        (bd, bn), = rkeys
+        return dev.device_join_match((bd, bn), (pd, pn))
+    nb = len(rkeys[0][0])
+    npr = len(lkeys[0][0])
+    from ..ops import host as hops
+    acc_b = np.zeros(nb, dtype=np.int64)
+    acc_p = np.zeros(npr, dtype=np.int64)
+    b_null = np.zeros(nb, dtype=bool)
+    p_null = np.zeros(npr, dtype=bool)
+    for (pd, pn), (bd, bn) in zip(lkeys, rkeys):
+        both = np.concatenate([bd, pd])
+        codes, card = hops.factorize_column(both, np.concatenate([bn, pn]))
+        acc_b = acc_b * np.int64(card + 1) + (codes[:nb] + 1)
+        acc_p = acc_p * np.int64(card + 1) + (codes[nb:] + 1)
+        b_null |= bn
+        p_null |= pn
+    return dev.device_join_match((acc_b, b_null), (acc_p, p_null))

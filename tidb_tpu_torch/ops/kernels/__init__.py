@@ -4,7 +4,12 @@ PyTorch version:
 ``expr_vm``     K2/K3 — the expression VM (filter mask, group keys and
                 aggregate inputs of a scan-aggregate fragment);
 ``groupby_agg`` K1 — the masked GROUP BY aggregate;
-``sort_topk``   K4 — multi-key sort for top-k and group order.
+``sort_topk``   K4 — multi-key sort for top-k and group order, and the
+                whole valid-first key order of a sort join;
+``join_probe``  K5a — the join probe (key packing, dense/sorted index
+                lookup, unique / count / existence modes);
+``join_expand`` K5b — the CSR expansion, post-join compaction and join
+                totals (a hand-written scan).
 
 Sources live in ``csrc/``; ``build.py`` compiles them with nvcc for
 sm_90a into one shared library at first use.  A wrapper launches its

@@ -38,3 +38,29 @@ __device__ __forceinline__ i64 floordiv(i64 a, i64 b) {
   if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
   return q;
 }
+
+// Index arrays come as int32 (tables under 2^31 rows) or int64.
+__device__ __forceinline__ i64 load_index(const void* p, int is64, i64 i) {
+  return is64 ? ((const i64*)p)[i] : (i64)((const int*)p)[i];
+}
+
+__device__ __forceinline__ i64 warp_sum_i64(i64 v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Adds every thread's `v` of the block into *out with one atomic.  Every
+// thread of the block must call it (it synchronises the block).
+__device__ __forceinline__ void block_add_to(i64 v, i64* out) {
+  __shared__ i64 warp_part[32];
+  v = warp_sum_i64(v);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) warp_part[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? warp_part[lane] : 0;
+    v = warp_sum_i64(v);
+    if (lane == 0 && v != 0) atomicAdd((u64*)out, (u64)v);
+  }
+}

@@ -2,14 +2,18 @@
 //
 // Replaces: tidb_tpu/ops/device.py:235-1040 compile_expr and its family,
 // traced into tidb_tpu/executor/device_exec.py:480 _build_pipeline.pipeline
-// (live-row mask AND filters -> group keys -> aggregate inputs).
+// (live-row mask AND filters -> group keys -> aggregate inputs), and, with
+// LOADG, the same expressions over a join fragment's joined row space
+// (tidb_tpu/executor/device_join.py:704 gather_env + each f(env)): leaf
+// filters, probe keys, ON residuals, final conditions, aggregate inputs.
 //
 // Bound on the card: memory.  Each row reads the input columns it computes
 // on once and writes the mask and the computed key and value columns once;
 // a key or value that is an input column unchanged is handed on as that
 // column by the wrapper and never copied (its program has no STORE for
 // it).  The arithmetic per row is a few dozen integer ops.  Least time =
-// bytes moved / 3.35 TB/s.
+// bytes moved / 3.35 TB/s.  A LOADG reads one 32-byte sector at random per
+// row and column read through a row index, plus the index (8 bytes a row).
 //
 // Design (the simple, correct first one): one thread per row in a
 // grid-stride loop interprets the flat register program that
@@ -34,7 +38,7 @@ enum {
   IN_I, IN_F, NZ_F, TRUTHY, BAND, BOR, BNOT,
   SEL, COALESCE, CIVIL, FLOORDIVK,
   LUT_I, LUT_F, LUTN_I, LUTN_F, ROUNDDIVK, RINT,
-  STORE, MASK
+  STORE, MASK, LOADG
 };
 
 __device__ __forceinline__ double as_f(i64 v) { return __longlong_as_double(v); }
@@ -97,7 +101,10 @@ __device__ __forceinline__ i64 clip_code(i64 v, i64 len) {
 }
 
 // meta layout (int64): [in_data x n_in | in_null x n_in | in_dtype x n_in |
+//                       in_idx x n_in | in_ext x n_in |
 //                       out_data x n_out | out_null x n_out]
+// in_idx / in_ext are read by LOADG only: a row-index tensor (int64) and
+// an extra null mask (bool), each 0 when absent.
 __global__ void expr_vm_kernel(const int* __restrict__ prog, int n_instr,
                                const i64* __restrict__ ci,
                                const double* __restrict__ cf, int n_in,
@@ -107,7 +114,7 @@ __global__ void expr_vm_kernel(const int* __restrict__ prog, int n_instr,
   i64 R[MAX_REGS];
   unsigned char N[MAX_REGS];
   for (int r = 0; r < MAX_REGS; ++r) { R[r] = 0; N[r] = 0; }
-  const i64* out_meta = meta + 3 * n_in;
+  const i64* out_meta = meta + 5 * n_in;
   for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n;
        row += (i64)gridDim.x * blockDim.x) {
     bool mask = row < n_live;
@@ -129,6 +136,20 @@ __global__ void expr_vm_kernel(const int* __restrict__ prog, int n_instr,
           // integer sources widen to int64; float sources are float64 bits
           r = v;
           nr = nl[row] != 0;
+          break;
+        }
+        case LOADG: {
+          // a column of another relation, read through the row index of
+          // this row space (the join fragment's gather_env), its nulls
+          // ORed with the row space's null-extension mask
+          const void* d = (const void*)meta[i0];
+          const unsigned char* nl = (const unsigned char*)meta[n_in + i0];
+          const int dt = (int)meta[2 * n_in + i0];
+          const i64* gi = (const i64*)meta[3 * n_in + i0];
+          const unsigned char* ext = (const unsigned char*)meta[4 * n_in + i0];
+          const i64 src = gi ? gi[row] : row;
+          r = load_in(d, dt, src);
+          nr = nl[src] != 0 || (ext && ext[row] != 0);
           break;
         }
         case CONST: r = i2 ? as_i(cf[i0]) : ci[i0]; nr = i1 != 0; break;

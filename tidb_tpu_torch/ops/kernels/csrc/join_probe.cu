@@ -1,0 +1,411 @@
+// K5a: the join probe of the join -> aggregate fragment, and the count pass
+// of the standalone join match (K7).
+//
+// Replaces: tidb_tpu/executor/device_join.py:553 _combined_join_keys,
+// :598 _pack_probe, the dense and sorted probe at :743-768 and the unique
+// gather at :776-808 of compile_fragment.run; the searchsorted count pass
+// of tidb_tpu/ops/device.py:1473 _join_count_impl.
+//
+// Three entries:
+//   join_range_run  - the data-dependent key packing of two relations:
+//                     per key column min/max over both sides' valid rows,
+//                     spans, the float64 span-overflow flag, both sides'
+//                     packed int64 keys and validity (and the build
+//                     rows' invalid flags), and the count of valid build
+//                     rows;
+//   join_probe_run  - per probe row: pack its key columns with the index's
+//                     static (min, span), clamping before the multiply and
+//                     excluding NULL or out-of-range keys; look the key up
+//                     in the dense CSR (starts[k], starts[k+1]) or binary-
+//                     search the sorted keys within [0, n_valid) (never
+//                     against the int64.max padding); then, by mode, the
+//                     build row and match flag of a unique build, the
+//                     (start, count) of a non-unique one and the total of
+//                     the counts, or existence; with the join kind's valid
+//                     rows, the left join's no-match map and the valid
+//                     count;
+//   join_finish_run - valid rows, no-match map and count from a match flag
+//                     refined by ON-clause residuals.
+//
+// Bound on the card: memory.  Each probe row reads its key columns, null
+// flags and validity once and writes its outputs once; every lookup into
+// the index (starts, sorted keys, row ids, the build side's validity) is a
+// random read, counted as one 32-byte sector each.  A sorted probe does
+// log2(n_valid) such reads.
+//
+// Design (simple and correct first): one thread per probe row in a grid-
+// stride loop; the binary search reads the keys straight from device
+// memory (the sorted index of partsupp at SF1 is 6.4 MB and stays in L2);
+// counts reduce through warp shuffles into one atomic per block.
+#include <limits.h>
+
+#include "common.cuh"
+
+#define JP_MAX_KEYS 8
+
+enum { JP_UNIQ = 0, JP_COUNT = 1, JP_EXISTS = 2 };
+enum { JK_INNER = 0, JK_LEFT = 1, JK_SEMI = 2, JK_ANTI = 3 };
+
+// --------------------------------------------------------------------------
+// key range: _combined_join_keys
+// --------------------------------------------------------------------------
+
+struct RangeArgs {
+  int k;
+  i64 np, nb;
+  const i64* pk[JP_MAX_KEYS];
+  const unsigned char* pn[JP_MAX_KEYS];
+  const i64* bk[JP_MAX_KEYS];
+  const unsigned char* bn[JP_MAX_KEYS];
+  const unsigned char* pv;  // probe relation validity
+  const unsigned char* bv;  // build relation validity
+  i64* mm;                  // 2k: min, max per column
+  i64* pko;
+  unsigned char* pvo;
+  i64* bko;
+  unsigned char* bvo;
+  unsigned char* bio;  // build rows' invalid flags (the sort's NULL flags)
+  unsigned char* ovf;
+  i64* nbv;
+};
+
+__device__ __forceinline__ bool range_row(const RangeArgs& a, i64 i, bool* probe,
+                                          i64* r) {
+  *probe = i < a.np;
+  *r = *probe ? i : i - a.np;
+  bool ok = *probe ? a.pv[*r] != 0 : a.bv[*r] != 0;
+  for (int c = 0; c < a.k; ++c)
+    ok = ok && ((*probe ? a.pn[c][*r] : a.bn[c][*r]) == 0);
+  return ok;
+}
+
+__global__ void jr_init(RangeArgs a) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    for (int c = 0; c < a.k; ++c) {
+      a.mm[2 * c] = LLONG_MAX;
+      a.mm[2 * c + 1] = LLONG_MIN;
+    }
+    *a.nbv = 0;
+    *a.ovf = 0;
+  }
+}
+
+__device__ __forceinline__ i64 warp_min(i64 v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const i64 w = __shfl_down_sync(0xffffffffu, v, o);
+    v = w < v ? w : v;
+  }
+  return v;
+}
+__device__ __forceinline__ i64 warp_max(i64 v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const i64 w = __shfl_down_sync(0xffffffffu, v, o);
+    v = w > v ? w : v;
+  }
+  return v;
+}
+
+__global__ void jr_minmax(RangeArgs a) {
+  i64 lo[JP_MAX_KEYS], hi[JP_MAX_KEYS];
+#pragma unroll
+  for (int c = 0; c < JP_MAX_KEYS; ++c) {
+    lo[c] = LLONG_MAX;
+    hi[c] = LLONG_MIN;
+  }
+  const i64 total = a.np + a.nb;
+  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (i64)gridDim.x * blockDim.x) {
+    bool probe;
+    i64 r;
+    if (!range_row(a, i, &probe, &r)) continue;
+#pragma unroll
+    for (int c = 0; c < JP_MAX_KEYS; ++c) {
+      if (c < a.k) {
+        const i64 v = probe ? a.pk[c][r] : a.bk[c][r];
+        lo[c] = v < lo[c] ? v : lo[c];
+        hi[c] = v > hi[c] ? v : hi[c];
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < JP_MAX_KEYS; ++c) {
+    if (c < a.k) {
+      const i64 l = warp_min(lo[c]), h = warp_max(hi[c]);
+      if ((threadIdx.x & 31) == 0) {
+        if (l != LLONG_MAX) atomicMin((long long*)&a.mm[2 * c], (long long)l);
+        if (h != LLONG_MIN) atomicMax((long long*)&a.mm[2 * c + 1], (long long)h);
+      }
+    }
+  }
+}
+
+__global__ void jr_pack(RangeArgs a) {
+  i64 mn[JP_MAX_KEYS], span[JP_MAX_KEYS];
+  double total_f = 1.0;
+  for (int c = 0; c < a.k && a.k > 1; ++c) {
+    const i64 mx = a.mm[2 * c + 1];
+    i64 m = a.mm[2 * c];
+    m = m < mx ? m : mx;  // both sides empty
+    mn[c] = m;
+    // the span in float64 first: mx - mn + 1 wraps in int64 when a
+    // column covers more than half the int64 range
+    double sf = (double)mx - (double)m + 1.0;
+    total_f *= sf > 1.0 ? sf : 1.0;
+    const i64 s = wrap_add(wrap_sub(mx, m), 1);
+    span[c] = s > 1 ? s : 1;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    *a.ovf = (a.k > 1 && total_f > 4611686018427387904.0) ? 1 : 0;
+  i64 nvalid = 0;
+  const i64 total = a.np + a.nb;
+  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (i64)gridDim.x * blockDim.x) {
+    bool probe;
+    i64 r;
+    const bool ok = range_row(a, i, &probe, &r);
+    i64 key;
+    if (a.k == 1) {
+      key = probe ? a.pk[0][r] : a.bk[0][r];
+    } else {
+      key = 0;
+      for (int c = 0; c < a.k; ++c) {
+        const i64 v = probe ? a.pk[c][r] : a.bk[c][r];
+        key = wrap_add(wrap_mul(key, span[c]), ok ? wrap_sub(v, mn[c]) : 0);
+      }
+    }
+    if (probe) {
+      a.pko[r] = key;
+      a.pvo[r] = ok;
+    } else {
+      a.bko[r] = key;
+      a.bvo[r] = ok;
+      a.bio[r] = !ok;
+      nvalid += ok;
+    }
+  }
+  block_add_to(nvalid, a.nbv);
+}
+
+// hdr (int64): [k, np, nb, pv, bv, mm, pko, pvo, bko, bvo, bio, ovf, nbv,
+//               then per key column c: pk, pn, bk, bn]
+extern "C" int join_range_run(const i64* hdr, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  RangeArgs a;
+  a.k = (int)hdr[0];
+  if (a.k < 1 || a.k > JP_MAX_KEYS) return (int)cudaErrorInvalidValue;
+  a.np = hdr[1];
+  a.nb = hdr[2];
+  a.pv = (const unsigned char*)hdr[3];
+  a.bv = (const unsigned char*)hdr[4];
+  a.mm = (i64*)hdr[5];
+  a.pko = (i64*)hdr[6];
+  a.pvo = (unsigned char*)hdr[7];
+  a.bko = (i64*)hdr[8];
+  a.bvo = (unsigned char*)hdr[9];
+  a.bio = (unsigned char*)hdr[10];
+  a.ovf = (unsigned char*)hdr[11];
+  a.nbv = (i64*)hdr[12];
+  for (int c = 0; c < a.k; ++c) {
+    const i64* h = hdr + 13 + 4 * c;
+    a.pk[c] = (const i64*)h[0];
+    a.pn[c] = (const unsigned char*)h[1];
+    a.bk[c] = (const i64*)h[2];
+    a.bn[c] = (const unsigned char*)h[3];
+  }
+  const i64 total = a.np + a.nb;
+  jr_init<<<1, 32, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (a.k > 1 && total > 0) {
+    jr_minmax<<<grid_for(total), TIDB_THREADS, 0, st>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  jr_pack<<<grid_for(total), TIDB_THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// pack and probe
+// --------------------------------------------------------------------------
+
+struct ProbeArgs {
+  i64 n;
+  int k;
+  int packed;  // key[0] is already the packed key (no range check)
+  const i64* key[JP_MAX_KEYS];
+  const unsigned char* knull[JP_MAX_KEYS];  // entries may be null
+  i64 mn[JP_MAX_KEYS], span[JP_MAX_KEYS];
+  const unsigned char* pvalid;  // null: every row valid
+  int layout;                   // 0 dense CSR, 1 sorted keys
+  const void* a0;
+  int a0_64;
+  i64 dense_span;
+  const i64* ord;  // sorted layout read through this order (may be null)
+  const void* a1;
+  int a1_64;
+  i64 nv;
+  const i64* nv_ptr;  // n_valid on the device (overrides nv)
+  int mode, kind;
+  const unsigned char* bvalid;  // build relation validity (may be null)
+  i64* bi;
+  unsigned char* hit;
+  unsigned char* valid;
+  unsigned char* nohit;
+  i64* pos0;
+  i64* cnt;
+  i64* count;
+};
+
+__device__ __forceinline__ i64 sorted_at(const ProbeArgs& a, i64 m) {
+  const i64* keys = (const i64*)a.a0;
+  return a.ord ? keys[a.ord[m]] : keys[m];
+}
+
+__device__ __forceinline__ bool kind_valid(int kind, bool pv, bool h) {
+  return kind == JK_LEFT ? pv : (kind == JK_ANTI ? (pv && !h) : (pv && h));
+}
+
+__global__ void jp_probe(ProbeArgs a) {
+  const i64 nv = a.nv_ptr ? *a.nv_ptr : a.nv;
+  i64 local = 0;
+  for (i64 r = (i64)blockIdx.x * blockDim.x + threadIdx.x; r < a.n;
+       r += (i64)gridDim.x * blockDim.x) {
+    const bool pv = a.pvalid ? a.pvalid[r] != 0 : true;
+    bool ok = pv;
+    i64 key;
+    if (a.packed) {
+      key = a.key[0][r];
+    } else {
+      key = 0;
+      for (int c = 0; c < a.k; ++c) {
+        const i64 v = wrap_sub(a.key[c][r], a.mn[c]);
+        const bool nl = a.knull[c] ? a.knull[c][r] != 0 : false;
+        ok = ok && !nl && v >= 0 && v < a.span[c];
+        const i64 vc = v < 0 ? 0 : (v > a.span[c] - 1 ? a.span[c] - 1 : v);
+        key = wrap_add(wrap_mul(key, a.span[c]), vc);
+      }
+    }
+    i64 p0, c;
+    if (a.layout == 0) {
+      const i64 kc = key < 0 ? 0 : (key > a.dense_span - 1 ? a.dense_span - 1 : key);
+      const i64 s0 = load_index(a.a0, a.a0_64, kc);
+      const i64 s1 = load_index(a.a0, a.a0_64, kc + 1);
+      p0 = s0;
+      c = ok ? s1 - s0 : 0;
+    } else {
+      i64 lo = 0, hi = nv;  // first position with key <= sorted
+      while (lo < hi) {
+        const i64 mid = (lo + hi) >> 1;
+        if (sorted_at(a, mid) < key) lo = mid + 1; else hi = mid;
+      }
+      p0 = lo;
+      if (a.mode == JP_UNIQ) {
+        c = (ok && lo < nv && sorted_at(a, lo) == key) ? 1 : 0;
+      } else {
+        i64 l2 = lo, h2 = nv;  // first position with key < sorted
+        while (l2 < h2) {
+          const i64 mid = (l2 + h2) >> 1;
+          if (sorted_at(a, mid) <= key) l2 = mid + 1; else h2 = mid;
+        }
+        c = ok ? l2 - lo : 0;
+      }
+    }
+    if (a.mode == JP_COUNT) {
+      a.pos0[r] = p0;
+      a.cnt[r] = c;
+      local += c;
+      continue;
+    }
+    bool h;
+    if (a.mode == JP_UNIQ) {
+      const i64 safe_hi = nv - 1 > 0 ? nv - 1 : 0;
+      const i64 at = p0 < 0 ? 0 : (p0 > safe_hi ? safe_hi : p0);
+      const i64 b = load_index(a.a1, a.a1_64, at);
+      h = c > 0 && (a.bvalid ? a.bvalid[b] != 0 : true);
+      a.bi[r] = b;
+      a.hit[r] = h;
+    } else {
+      h = c > 0;
+    }
+    const bool v = kind_valid(a.kind, pv, h);
+    a.valid[r] = v;
+    if (a.nohit) a.nohit[r] = !h;
+    local += v;
+  }
+  if (a.count) block_add_to(local, a.count);
+}
+
+// hdr (int64): [n, k, packed, pvalid, layout, a0, a0_64, dense_span, ord,
+//               a1, a1_64, nv, nv_ptr, mode, kind, bvalid,
+//               bi, hit, valid, nohit, pos0, cnt, count,
+//               then per key column c: key, knull, mn, span]
+extern "C" int join_probe_run(const i64* hdr, void* stream) {
+  ProbeArgs a;
+  a.n = hdr[0];
+  a.k = (int)hdr[1];
+  if (a.k < 1 || a.k > JP_MAX_KEYS) return (int)cudaErrorInvalidValue;
+  a.packed = (int)hdr[2];
+  a.pvalid = (const unsigned char*)hdr[3];
+  a.layout = (int)hdr[4];
+  a.a0 = (const void*)hdr[5];
+  a.a0_64 = (int)hdr[6];
+  a.dense_span = hdr[7];
+  a.ord = (const i64*)hdr[8];
+  a.a1 = (const void*)hdr[9];
+  a.a1_64 = (int)hdr[10];
+  a.nv = hdr[11];
+  a.nv_ptr = (const i64*)hdr[12];
+  a.mode = (int)hdr[13];
+  a.kind = (int)hdr[14];
+  a.bvalid = (const unsigned char*)hdr[15];
+  a.bi = (i64*)hdr[16];
+  a.hit = (unsigned char*)hdr[17];
+  a.valid = (unsigned char*)hdr[18];
+  a.nohit = (unsigned char*)hdr[19];
+  a.pos0 = (i64*)hdr[20];
+  a.cnt = (i64*)hdr[21];
+  a.count = (i64*)hdr[22];
+  for (int c = 0; c < a.k; ++c) {
+    const i64* h = hdr + 23 + 4 * c;
+    a.key[c] = (const i64*)h[0];
+    a.knull[c] = (const unsigned char*)h[1];
+    a.mn[c] = h[2];
+    a.span[c] = h[3];
+  }
+  if (a.layout == 0 && a.dense_span < 1) return (int)cudaErrorInvalidValue;
+  if (a.n <= 0) return 0;
+  jp_probe<<<grid_for(a.n), TIDB_THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// finish: valid rows after ON-clause residuals refined the match flag
+// --------------------------------------------------------------------------
+
+__global__ void jp_finish(i64 n, const unsigned char* pvalid,
+                          const unsigned char* hit, int kind,
+                          unsigned char* valid, unsigned char* nohit,
+                          i64* count) {
+  i64 local = 0;
+  for (i64 r = (i64)blockIdx.x * blockDim.x + threadIdx.x; r < n;
+       r += (i64)gridDim.x * blockDim.x) {
+    const bool pv = pvalid ? pvalid[r] != 0 : true;
+    const bool h = hit[r] != 0;
+    const bool v = kind_valid(kind, pv, h);
+    valid[r] = v;
+    if (nohit) nohit[r] = !h;
+    local += v;
+  }
+  if (count) block_add_to(local, count);
+}
+
+// hdr (int64): [n, pvalid, hit, kind, valid, nohit, count]
+extern "C" int join_finish_run(const i64* hdr, void* stream) {
+  const i64 n = hdr[0];
+  if (n <= 0) return 0;
+  jp_finish<<<grid_for(n), TIDB_THREADS, 0, (cudaStream_t)stream>>>(
+      n, (const unsigned char*)hdr[1], (const unsigned char*)hdr[2],
+      (int)hdr[3], (unsigned char*)hdr[4], (unsigned char*)hdr[5],
+      (i64*)hdr[6]);
+  return (int)cudaGetLastError();
+}

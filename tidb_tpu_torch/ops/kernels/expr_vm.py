@@ -17,6 +17,15 @@ Two executors run the same program:
 * :func:`interpret` (CPU tensors, and the reference the card's kernel is
   held to): the program run instruction by instruction on whole columns.
 
+An input slot is ``(data, nulls)`` over the program's rows, or ``(data,
+nulls, idx, ext)``: a column of another relation read through the int64
+row-index tensor ``idx`` (None: the row itself) with the bool mask ``ext``
+(None: none) ORed into its nulls.  Such a slot loads with ``LOADG`` —
+``data[idx[r]]``, ``nulls[idx[r]] | ext[r]`` — so the join fragment
+evaluates its expressions over the joined row space without gathered
+copies of the columns (``tidb_tpu/executor/device_join.py:704
+gather_env``).
+
 Replaces the traced ``compile_expr`` closures of
 ``tidb_tpu/ops/device.py:235-1040`` and the prologue of
 ``tidb_tpu/executor/device_exec.py:480 _build_pipeline.pipeline``.
@@ -38,7 +47,7 @@ OPCODES = (
     "IN_I", "IN_F", "NZ_F", "TRUTHY", "BAND", "BOR", "BNOT",
     "SEL", "COALESCE", "CIVIL", "FLOORDIVK",
     "LUT_I", "LUT_F", "LUTN_I", "LUTN_F", "ROUNDDIVK", "RINT",
-    "STORE", "MASK",
+    "STORE", "MASK", "LOADG",
 )
 OP = {name: i for i, name in enumerate(OPCODES)}
 CMP_CODES = {"eq": 0, "ne": 1, "lt": 2, "le": 3, "gt": 4, "ge": 5}
@@ -183,6 +192,7 @@ class Program:
         self._graph = graph
         self._dev = {}
         self._variants = {}
+        self._gathered = {}
 
     @classmethod
     def build(cls, conds, keys, vals):
@@ -264,10 +274,28 @@ class Program:
                 in_cols=self.in_cols)
         return v
 
+    def gathered(self, slots: frozenset) -> "Program":
+        """This program with the LOADs of the input slots in `slots`
+        turned into LOADGs (reads through a row index and an extra null
+        mask).  Slot numbers, registers and tables are unchanged."""
+        if not slots:
+            return self
+        v = self._gathered.get(slots)
+        if v is None:
+            instrs = self.instrs.copy()
+            for ins in instrs:
+                if ins[0] == OP["LOAD"] and int(ins[5]) in slots:
+                    ins[0] = OP["LOADG"]
+            v = Program(instrs, self.ci, self.cf, self.n_regs, self.in_cols,
+                        self.out_kinds, self.key_slots, self.val_slots,
+                        self._graph, self.pass_in)
+            self._gathered[slots] = v
+        return v
+
     def loaded_slots(self) -> list:
         """The input slots the program reads (one LOAD each)."""
         return sorted({int(i[5]) for i in self.instrs
-                       if i[0] == OP["LOAD"]})
+                       if i[0] in (OP["LOAD"], OP["LOADG"])})
 
     @classmethod
     def _assemble(cls, order, sinks, out_kinds, key_slots, val_slots,
@@ -413,11 +441,20 @@ def _civil(z, part):
 _CMP_FNS = (torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge)
 
 
+def gathered_slots(inputs) -> frozenset:
+    """The input slots read through a row index or an extra null mask."""
+    return frozenset(s for s, inp in enumerate(inputs)
+                     if len(inp) > 2 and (inp[2] is not None
+                                          or inp[3] is not None))
+
+
 def interpret(prog: Program, inputs, n: int, n_live: int, dev=None):
     """Run `prog` on whole columns with torch ops.  `inputs`: (data,
-    nulls) per input slot.  Returns (mask, [(data, nulls)] per output)."""
+    nulls) or (data, nulls, idx, ext) per input slot (see the module
+    note).  Returns (mask, [(data, nulls)] per output)."""
     if dev is None:
         dev = inputs[0][0].device if inputs else torch.device("cpu")
+    prog = prog.gathered(gathered_slots(inputs))
     _instrs, ci_t, cf_t = prog.tables(dev)
     i64, f64 = torch.int64, torch.float64
     R = [None] * prog.n_regs
@@ -428,9 +465,16 @@ def interpret(prog: Program, inputs, n: int, n_live: int, dev=None):
         op, dst, a, b, c, i0, i1, i2 = ins
         name = OPCODES[op]
         if name == "LOAD":
-            d, nl = inputs[i0]
+            d, nl = inputs[i0][:2]
             d = d.to(f64) if d.is_floating_point() else d.to(i64)
             R[dst] = (d, nl.to(torch.bool))
+        elif name == "LOADG":
+            d, nl, idx, ext = inputs[i0]
+            if idx is not None:
+                d, nl = d[idx], nl[idx]
+            d = d.to(f64) if d.is_floating_point() else d.to(i64)
+            nl = nl.to(torch.bool)
+            R[dst] = (d, nl | ext if ext is not None else nl)
         elif name == "CONST":
             t = cf_t[i0] if i2 else ci_t[i0]
             R[dst] = (t, torch.full((), bool(i1), device=dev))
@@ -557,49 +601,74 @@ def _kernel():
 
 def handed_on(prog: Program, inputs) -> frozenset:
     """The output slots that are input columns already in the output's
-    dtype (int64 or float64 data, bool nulls): the kernel hands those on
-    as they are instead of copying them, as :func:`interpret` does."""
+    dtype (int64 or float64 data, bool nulls), read directly (not through
+    a row index or null mask): the kernel hands those on as they are
+    instead of copying them, as :func:`interpret` does."""
+    gathered = gathered_slots(inputs)
     return frozenset(
         s for s, j in prog.pass_in.items()
-        if inputs[j][0].dtype == (torch.float64 if prog.out_kinds[s] == "f"
-                                  else torch.int64)
+        if j not in gathered
+        and inputs[j][0].dtype == (torch.float64 if prog.out_kinds[s] == "f"
+                                   else torch.int64)
         and inputs[j][1].dtype == torch.bool)
 
 
 def run(prog: Program, inputs, n: int, n_live: int, dev: torch.device):
-    """Evaluate `prog` over `inputs` ((data, nulls) tensors of length n per
-    input slot) on `dev`: the CUDA kernel on a card, :func:`interpret` on
-    the CPU.  Returns (mask, [(data, nulls)] per output slot)."""
+    """Evaluate `prog` over `inputs` (per input slot (data, nulls) tensors
+    of length n, or (data, nulls, idx, ext) with idx / ext of length n) on
+    `dev`: the CUDA kernel on a card, :func:`interpret` on the CPU.
+    Returns (mask, [(data, nulls)] per output slot)."""
     if dev.type == "cpu":
         return interpret(prog, inputs, n, n_live, dev)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    for d, nl in inputs:
-        if d.device != dev or nl.device != dev:
-            raise ValueError("expr_vm: inputs on different devices")
+    gathered = gathered_slots(inputs)
+    for s, inp in enumerate(inputs):
+        d, nl = inp[:2]
+        idx, ext = inp[2:] if len(inp) > 2 else (None, None)
+        for t in (d, nl, idx, ext):
+            if t is None:
+                continue
+            if t.device != dev:
+                raise ValueError("expr_vm: inputs on different devices")
+            if not t.is_contiguous():
+                raise ValueError("expr_vm: inputs must be contiguous")
         if d.dtype not in DTYPE_CODES or nl.dtype not in (torch.bool,
                                                           torch.uint8):
             raise TypeError(f"expr_vm: unsupported input dtype {d.dtype}")
-        if not (d.is_contiguous() and nl.is_contiguous()):
-            raise ValueError("expr_vm: inputs must be contiguous")
-        if d.shape[0] != n or nl.shape[0] != n:
+        if idx is not None and idx.dtype != torch.int64:
+            raise TypeError("expr_vm: row indices must be int64")
+        if ext is not None and ext.dtype != torch.bool:
+            raise TypeError("expr_vm: extra null masks must be bool")
+        if d.shape[0] != nl.shape[0]:
+            raise ValueError("expr_vm: data and nulls differ in length")
+        if idx is None and d.shape[0] != n:
             raise ValueError("expr_vm: input length differs from n")
+        for t in (idx, ext):
+            if t is not None and t.shape[0] != n:
+                raise ValueError("expr_vm: row index or null mask length "
+                                 "differs from n")
     skip = handed_on(prog, inputs)
-    vprog = prog.without_stores(skip)
+    vprog = prog.without_stores(skip).gathered(gathered)
     instrs, ci, cf = vprog.tables(dev)
     mask = torch.empty(n, dtype=torch.bool, device=dev)
-    outs = [tuple(inputs[prog.pass_in[s]]) if s in skip else
+    outs = [tuple(inputs[prog.pass_in[s]][:2]) if s in skip else
             (torch.empty(n, dtype=torch.float64 if k == "f"
                          else torch.int64, device=dev),
              torch.empty(n, dtype=torch.bool, device=dev))
             for s, k in enumerate(prog.out_kinds)]
     n_in, n_out = len(inputs), len(outs)
-    meta = np.zeros(3 * n_in + 2 * n_out + 1, dtype=np.int64)
-    for s, (d, nl) in enumerate(inputs):
+    meta = np.zeros(5 * n_in + 2 * n_out + 1, dtype=np.int64)
+    for s, inp in enumerate(inputs):
+        d, nl = inp[:2]
         meta[s] = d.data_ptr()
         meta[n_in + s] = nl.data_ptr()
         meta[2 * n_in + s] = DTYPE_CODES[d.dtype]
-    base = 3 * n_in
+        if s in gathered:
+            idx, ext = inp[2:]
+            meta[3 * n_in + s] = 0 if idx is None else idx.data_ptr()
+            meta[4 * n_in + s] = 0 if ext is None else ext.data_ptr()
+    base = 5 * n_in
     for s, (d, nl) in enumerate(outs):
         if s not in skip:
             meta[base + s] = d.data_ptr()

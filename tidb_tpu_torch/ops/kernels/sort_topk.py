@@ -111,3 +111,14 @@ def sort_indices(cols, nulls, descs, nulls_first, length: int, ng: int,
     idx = _sort_cuda(cols, nulls, descs, nulls_first, length, ng)
     LAUNCHES[0] += 1
     return idx[:k]
+
+
+def valid_first_order(key, invalid):
+    """All row indices of the int64 `key` in the valid-first, key-sorted,
+    stable order: valid rows by (key, index), then the rows flagged in the
+    bool `invalid` by index — the order of the reference's
+    ``lexsort((key, ~valid))`` on the valid prefix (``device_join.py:531``)
+    and of ``argsort(key, stable=True)`` once NULL keys are set aside
+    (``ops/device.py:1476``).  Counted in ``LAUNCHES`` on the card."""
+    n = key.shape[0]
+    return sort_indices([key], [invalid], [False], [False], n, n, n)
