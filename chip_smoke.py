@@ -36,7 +36,34 @@ Phases, each fatal on failure:
    equal the host engine's, with the same result types (every cell exact
    but in DOUBLE or FLOAT columns, which compare within rtol 1e-9 /
    atol 1e-12);
-5. report — the card's name and power limit, a ``kernels`` JSON line,
+5. ``[paged-sf1]`` — the same SF1 ``lineitem`` and ``orders`` a second
+   time, as paged (memmap) tables in a temporary directory removed at
+   exit (``carry.install_tpch``'s paged option, db ``tpch_paged``, the
+   other six tables bulk, ANALYZE), ``tidb_device_stream_rows`` =
+   1,048,576 (lineitem in 6 pages): Q1, Q6, the top-N, Q3, Q5, Q9 and Q18
+   on the device engine, every launch counter set to 0 before; each scan
+   aggregate must run streamed (``engine:tpu-stream`` in EXPLAIN
+   ANALYZE), each join paged (``LAST_PAGED_STATS`` of kind "paged", at
+   least 2 pages), the partial-state merge must launch, and the rows must
+   equal the host engine's rows of phase 4; then a streamed
+   COUNT(DISTINCT) against the host engine on the bulk tables;
+6. ``[sf10]`` — ``carry.gen_tpch(10)`` into ``tpch10`` as bulk (RAM)
+   tables with ANALYZE; at the default ``tidb_device_stream_rows`` the
+   reference's own gates stream the 60,012,150-row lineitem (scan
+   aggregates) and page it (joins) in 15 pages of 4,194,304 rows.  The
+   seven queries twice each (warm-up, then timed with the launch
+   counters set to 0 before), each required to run streamed or paged;
+   the partial-state merge against its plain version on Q1's and Q18's
+   folds (integers exact, floats rtol 1e-9), timed beside its bound;
+   then each query twice on the resident whole-input path
+   (``tidb_device_stream_rows = -1``), whose rows the streamed rows must
+   equal exactly (a query the resident path cannot run is compared with
+   the host engine instead), and Q6 and Q3 against the host engine.  One
+   ``[stream]`` line per streamed or paged run: pages, bytes host →
+   device, the copies' device time, the host slicing, sync and merge
+   times, and the H2D bound at the pinned rate this run measures (one
+   256 MiB copy);
+7. report — the card's name and power limit, a ``kernels`` JSON line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the ``tidb_tpu_torch`` package beside it,
@@ -60,6 +87,10 @@ HBM_BYTES_PER_S = 3.35e12
 
 #: TPC-H scale factor of lineitem: SF1, 6,001,215 rows
 SF = 1
+#: the out-of-core phase's scale factor: lineitem 60,012,150 rows
+SF_BIG = 10
+#: rows per page of the paged SF1 tables: lineitem in 6 pages
+PAGED_SF1_ROWS = 1 << 20
 
 Q1 = """
 select l_returnflag, l_linestatus,
@@ -939,6 +970,7 @@ def phase_main_path(dom, s, n_rows, report):
             f"{(time.perf_counter() - t0) * 1e3:.3f} ms on the device "
             "engine (join indexes cached)")
     s.execute("set @@tidb_executor_engine = 'host'")
+    host_res = {}
     for name, sql in QUERIES:
         t0 = time.perf_counter()
         host = s.execute(HOST_TEXT.get(name, sql))[-1]
@@ -950,6 +982,8 @@ def phase_main_path(dom, s, n_rows, report):
                  f"device {dev_res[name].rows[:5]}\nhost   {host.rows[:5]}")
         log(f"[main] {name}: {len(host.rows)} rows equal the host "
             f"engine's (host {dt:.3f}s); first {host.rows[:2]}")
+        host_res[name] = host
+    return host_res
 
 
 def run_counted(s, name, sql, counters, need, n_rows, index_builds):
@@ -975,6 +1009,362 @@ def run_counted(s, name, sql, counters, need, n_rows, index_builds):
     log(f"[main] {name}: {dt * 1e3:.3f} ms on the device engine, "
         f"{n_rows / dt:,.0f} lineitem rows/s, launches {moved}{note}")
     return res, moved
+
+
+# -- the out-of-core path: paged tables, streamed and paged queries ----------
+
+#: the queries that stream or page (the join without an aggregate has no
+#: aggregate fragment to page), and the scan aggregates among them
+STREAM_QUERIES = ("q1", "q6", "topn", "q3", "q5", "q9", "q18")
+#: a streamed COUNT(DISTINCT) (its own path: no partial-state fold)
+COUNT_DISTINCT = ("select l_returnflag, count(distinct l_suppkey) "
+                  "from lineitem group by l_returnflag "
+                  "order by l_returnflag")
+SCAN_AGGS = ("q1", "q6", "topn")
+
+#: kernels each streamed or paged query must launch: every page runs K2 +
+#: K1 (and a join page K5a and K5b's count), the partial states fold
+#: through the merge; Q3's and Q18's final states select their top rows
+#: with K4 (the streamed scan aggregate fetches its whole state instead)
+STREAM_NEED = {
+    **{q: ["expr_vm", "groupby_agg", "merge_states"] for q in SCAN_AGGS},
+    **{q: ["expr_vm", "groupby_agg", "join_probe", "join_expand",
+           "merge_states"] for q in ("q5", "q9")},
+    **{q: ["expr_vm", "groupby_agg", "join_probe", "join_expand",
+           "merge_states", "sort_topk"] for q in ("q3", "q18")},
+}
+
+
+def stream_counters():
+    from tidb_tpu_torch.ops.kernels import (expr_vm, groupby_agg,
+                                            join_expand, join_probe,
+                                            merge_states, sort_topk)
+    return {"expr_vm": expr_vm.LAUNCHES, "groupby_agg": groupby_agg.LAUNCHES,
+            "sort_topk": sort_topk.LAUNCHES,
+            "join_probe": join_probe.LAUNCHES,
+            "join_expand": join_expand.LAUNCHES,
+            "merge_states": merge_states.LAUNCHES}
+
+
+def pinned_h2d_rate():
+    """Bytes / s of one pinned host → device copy of 256 MiB (CUDA
+    events, after one warm-up copy)."""
+    import torch
+    n = 256 << 20
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    dev.copy_(host, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    return n / (start.elapsed_time(end) / 1e3)
+
+
+class StreamRecorder:
+    """While installed, keeps every streamed or paged run's stage
+    statistics (``device_exec.StreamStats``, one per run: a Q18 has its
+    IN subquery's streamed aggregate and its paged join)."""
+
+    def __init__(self):
+        self.runs = []
+
+    def __enter__(self):
+        from tidb_tpu_torch.executor import device_exec
+        self._orig = orig = device_exec.StreamStats.finish
+        runs = self.runs
+
+        def finish(st, *a, **kw):
+            orig(st, *a, **kw)
+            runs.append(dict(st.s))
+        device_exec.StreamStats.finish = finish
+        return self
+
+    def __exit__(self, *exc):
+        from tidb_tpu_torch.executor import device_exec
+        device_exec.StreamStats.finish = self._orig
+
+
+def stream_lines(tag, name, runs, dt, rate):
+    """The ``[stream]`` line of each streamed or paged run of a query."""
+    for st in runs:
+        bound = st["h2d_bytes"] / rate
+        log(f"[stream] {tag} {name} ({st['kind']}): {st['pages']} pages, "
+            f"{st['h2d_bytes']:,} bytes host→device in {st['h2d_s']:.4f} s "
+            f"on the copy stream (H2D bound {bound:.4f} s at "
+            f"{rate / 1e9:.2f} GB/s pinned); host slicing "
+            f"{st['slice_s']:.4f} s, dispatch {st['dispatch_s']:.4f} s, "
+            f"sync {st['sync_s']:.4f} s ({st['syncs']} reads), merge "
+            f"{st['merge_s']:.4f} s ({st['merges']} folds), fetch "
+            f"{st['fetch_s']:.4f} s; capacity {st['capacity']}, "
+            f"{st['groups']} groups; query {dt:.4f} s, of it "
+            f"{st['index_s']:.4f} s in {st['index_builds']} join index "
+            "builds (host numpy)")
+
+
+def run_streamed(s, tag, name, sql, counters, need=None, kind=None):
+    """One query on the device engine; it must run streamed (scan
+    aggregates) or paged (joins).  Returns (result, seconds, launches,
+    runs); each run carries ``index_s``, the host seconds the query spent
+    in join index (re)builds (K6, numpy), and ``index_builds``."""
+    import torch
+    from tidb_tpu_torch.executor import device_join
+    before = {k: c[0] for k, c in counters.items()}
+    builds = []
+    build_index = device_join.build_join_index
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return build_index(*a, **kw)
+        finally:
+            builds.append(time.perf_counter() - t)
+    device_join.build_join_index = timed_build
+    try:
+        with StreamRecorder() as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = s.execute(sql)[-1]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    finally:
+        device_join.build_join_index = build_index
+    for r in rec.runs:
+        r["index_s"], r["index_builds"] = sum(builds), len(builds)
+    moved = {k: c[0] - before[k] for k, c in counters.items()}
+    kinds = [r["kind"] for r in rec.runs]
+    want = kind or ("stream" if name in SCAN_AGGS else "paged")
+    if want not in kinds or not all(r["pages"] >= 2 for r in rec.runs
+                                    if r["kind"] == want):
+        fail(f"{tag} {name}: did not run {want} on the device (runs "
+             f"{kinds}; degraded to the host engine or the resident "
+             "path?)")
+    for k in need or ():
+        if moved[k] <= 0:
+            fail(f"{tag} {name}: kernel {k} was not launched")
+    return res, dt, moved, rec.runs
+
+
+def phase_paged_sf1(args, dom, host_res, rate):
+    import shutil
+    import tempfile
+    from tidb_tpu_torch import carry
+    from tidb_tpu_torch.session import new_session
+    t0 = time.perf_counter()
+    tables = carry.gen_tpch(SF, seed=args.seed)
+    root = tempfile.mkdtemp(prefix="tidb-paged-sf1-")
+    try:
+        s = new_session(dom)
+        carry.install_tpch(s.execute, dom, "tpch_paged", tables,
+                           paged_root=root)
+        del tables
+        log(f"[paged-sf1] lineitem and orders written paged to a "
+            f"temporary directory, the rest bulk, ANALYZE: "
+            f"{time.perf_counter() - t0:.1f}s")
+        s.execute("set @@tidb_executor_engine = 'tpu'")
+        s.execute(f"set tidb_device_stream_rows = {PAGED_SF1_ROWS}")
+        counters = stream_counters()
+        for c in counters.values():
+            c[0] = 0
+        sqls = dict(QUERIES)
+        for name in STREAM_QUERIES:
+            res, dt, moved, runs = run_streamed(
+                s, "paged-sf1", name, sqls[name], counters,
+                STREAM_NEED[name])
+            if not rows_equal(res, host_res[name]):
+                fail(f"paged-sf1 {name}: rows differ from the host "
+                     f"engine's:\ndevice {res.rows[:5]}\n"
+                     f"host   {host_res[name].rows[:5]}")
+            log(f"[paged-sf1] {name}: {len(res.rows)} rows equal the host "
+                f"engine's on the bulk tables; {dt * 1e3:.3f} ms, "
+                f"launches {moved}")
+            stream_lines("paged-sf1", name, runs, dt, rate)
+        log(f"[paged-sf1] launches {dict((k, c[0]) for k, c in counters.items())}")
+        # streamed COUNT(DISTINCT): per-page pair dedup (K1 `first`), one
+        # K1 cnt_dist over the live pairs — against the host engine on
+        # the bulk tables
+        res, dt, moved, runs = run_streamed(
+            s, "paged-sf1", "count_distinct", COUNT_DISTINCT, counters,
+            ["expr_vm", "groupby_agg"], kind="stream")
+        s.execute("use tpch")
+        s.execute("set @@tidb_executor_engine = 'host'")
+        host = s.execute(COUNT_DISTINCT)[-1]
+        if not host.rows or not rows_equal(res, host):
+            fail(f"paged-sf1 count_distinct: rows differ from the host "
+                 f"engine's:\ndevice {res.rows}\nhost   {host.rows}")
+        log(f"[paged-sf1] count_distinct: {len(res.rows)} rows equal the "
+            f"host engine's on the bulk tables; {dt * 1e3:.3f} ms, "
+            f"launches {moved}")
+        stream_lines("paged-sf1", "count_distinct", runs, dt, rate)
+        s.execute("use tpch_paged")
+        s.execute("set @@tidb_executor_engine = 'tpu'")
+        for name in SCAN_AGGS:
+            res = s.execute("explain analyze " + sqls[name])[-1]
+            agg_lines = [r for r in res.rows if "HashAgg" in str(r[0])]
+            if not agg_lines or not all(
+                    any("engine:tpu-stream" in str(c) for c in r)
+                    for r in agg_lines):
+                for r in res.rows:
+                    log(f"    {r}")
+                fail(f"paged-sf1 {name}: EXPLAIN ANALYZE shows a HashAgg "
+                     "without engine:tpu-stream")
+            log(f"[paged-sf1] {name}: EXPLAIN ANALYZE engine:tpu-stream")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class FoldCapture:
+    """While installed, keeps the largest partial-state fold that fit its
+    merge capacity: (parts, n_keys, merge_ops, merge_cap, pack)."""
+
+    def __init__(self):
+        self.best = None
+
+    def __enter__(self):
+        from tidb_tpu_torch.ops.kernels import merge_states
+        self._orig = orig = merge_states.merge
+
+        def merge(parts, n_keys, merge_ops, merge_cap, pack=None):
+            out = orig(parts, n_keys, merge_ops, merge_cap, pack)
+            rows = sum(int(p[0][0].shape[0]) for p in parts)
+            if int(out[4]) <= merge_cap and (
+                    self.best is None or rows >= self.best[0]):
+                self.best = (rows, (list(parts), n_keys, merge_ops,
+                                    merge_cap, pack))
+            return out
+        merge_states.merge = merge
+        return self
+
+    def __exit__(self, *exc):
+        from tidb_tpu_torch.ops.kernels import merge_states
+        merge_states.merge = self._orig
+
+
+def check_merge(name, call):
+    """The merge kernel against its plain version on one fold of the main
+    path, timed beside its bound: the live slots of every part and their
+    group counts read once, the merged state written once."""
+    import torch
+    from tidb_tpu_torch.ops.kernels import merge_states
+    parts, n_keys, merge_ops, merge_cap, pack = call
+    out_k = merge_states.merge(*call)
+    out_p = merge_states.merge_plain(*call)
+    torch.cuda.synchronize()
+    err = compare_agg(out_k, out_p, merge_ops, merge_cap, f"merge {name}")
+    ms = cuda_ms(lambda: merge_states.merge(*call))
+    plain_ms = cuda_ms(lambda: merge_states.merge_plain(*call))
+    live = sum(min(int(p[4]), int(p[0][0].shape[0])) for p in parts)
+    slot = 9 * n_keys + 9 * len(merge_ops)  # value 8 B + NULL flag 1 B each
+    moved = live * slot + 8 * len(parts) + merge_cap * (slot + 1) + 8
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    caps = sorted({int(p[0][0].shape[0]) for p in parts})
+    log(f"[merge] {name}: {len(parts)} parts (capacities {caps}), {live} "
+        f"live slots -> {int(out_k[4])} groups in {merge_cap} slots, "
+        f"pack {pack}: max abs err {err:.3g}; {ms:.3f} ms (plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+
+
+def phase_sf10(args, dom, rate, report):
+    import torch
+    from tidb_tpu_torch import carry
+    from tidb_tpu_torch.session import new_session
+    t0 = time.perf_counter()
+    tables = carry.gen_tpch(SF_BIG, seed=args.seed)
+    n = tables["lineitem"][1]
+    log(f"[sf10] generated the eight TPC-H tables: lineitem {n} rows, "
+        f"orders {tables['orders'][1]} in {time.perf_counter() - t0:.1f}s")
+    s = new_session(dom)
+    t0 = time.perf_counter()
+    carry.install_tpch(s.execute, dom, "tpch10", tables, analyze=False)
+    del tables
+    log(f"[sf10] installed as bulk tables in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for t in carry.TPCH_TABLES:
+        s.execute(f"analyze table {t}")
+    log(f"[sf10] ANALYZE of the eight tables: "
+        f"{time.perf_counter() - t0:.1f}s")
+    s.execute("set @@tidb_executor_engine = 'tpu'")
+    sqls = dict(QUERIES)
+    counters = stream_counters()
+    folds = {}
+    for name in STREAM_QUERIES:
+        if name in ("q1", "q18"):
+            with FoldCapture() as cap:
+                _r, dt, _m, _runs = run_streamed(s, "sf10", name,
+                                                 sqls[name], counters)
+            folds[name] = cap.best[1]
+        else:
+            _r, dt, _m, _runs = run_streamed(s, "sf10", name, sqls[name],
+                                             counters)
+        log(f"[sf10] warm-up {name}: {dt:.3f} s")
+    merge_row = None
+    for name in ("q1", "q18"):
+        row = check_merge(f"sf10 {name}", folds.pop(name))
+        if merge_row is None or row["bound_ms"] > merge_row["bound_ms"]:
+            merge_row = dict(row, max_abs_err=max(
+                row["max_abs_err"],
+                merge_row["max_abs_err"] if merge_row else 0.0))
+    report["merge_states"].update(merge_row)
+    torch.cuda.empty_cache()
+
+    for c in counters.values():
+        c[0] = 0
+    streamed = {}
+    times = {}
+    for name in STREAM_QUERIES:
+        res, dt, moved, runs = run_streamed(s, "sf10", name, sqls[name],
+                                            counters, STREAM_NEED[name])
+        streamed[name], times[name] = res, dt
+        log(f"[sf10] {name}: {dt:.4f} s streamed/paged, "
+            f"{n / dt:,.0f} lineitem rows/s, launches {moved}")
+        stream_lines("sf10", name, runs, dt, rate)
+    report["merge_states"]["launches"] = counters["merge_states"][0]
+    log(f"[sf10] launches {dict((k, c[0]) for k, c in counters.items())}")
+
+    # the resident whole-input path of the same queries
+    s.execute("set tidb_device_stream_rows = -1")
+    host_check = ["q6", "q3"]
+    for name in STREAM_QUERIES:
+        before = counters["groupby_agg"][0]
+        with StreamRecorder() as rec:
+            s.execute(sqls[name])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = s.execute(sqls[name])[-1]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if rec.runs or counters["groupby_agg"][0] == before:
+            log(f"[sf10] {name}: the resident path did not run it "
+                f"(streamed/paged runs {[r['kind'] for r in rec.runs]}); "
+                "its streamed rows are compared with the host engine "
+                "instead")
+            if name not in host_check:
+                host_check.append(name)
+            continue
+        if not rows_equal(streamed[name], res):
+            fail(f"sf10 {name}: streamed rows differ from the resident "
+                 f"path's:\nstreamed {streamed[name].rows[:5]}\n"
+                 f"resident {res.rows[:5]}")
+        log(f"[sf10] {name}: {len(res.rows)} rows equal the resident "
+            f"path's; resident {dt:.4f} s, streamed/paged "
+            f"{times[name]:.4f} s")
+    s.execute("set tidb_device_stream_rows = 0")
+    s.execute("set @@tidb_executor_engine = 'host'")
+    for name in host_check:
+        t0 = time.perf_counter()
+        host = s.execute(HOST_TEXT.get(name, sqls[name]))[-1]
+        dt = time.perf_counter() - t0
+        if not host.rows or not rows_equal(streamed[name], host):
+            fail(f"sf10 {name}: streamed rows differ from the host "
+                 f"engine's:\nstreamed {streamed[name].rows[:5]}\n"
+                 f"host     {host.rows[:5]}")
+        log(f"[sf10] {name}: {len(host.rows)} rows equal the host "
+            f"engine's (host {dt:.3f} s, streamed/paged "
+            f"{times[name]:.4f} s)")
 
 
 def main(argv=None) -> int:
@@ -1038,18 +1428,42 @@ def main(argv=None) -> int:
                                  "join_probe.cu",
                        "replaces": "tidb_tpu/ops/device.py:1506",
                        "bound_by": "bytes", "library_ms": None},
+        # no one PyTorch call computes a group-by, so none a fold of them
+        "merge_states": {"name": "K8/K9 merge_states (partial-state fold)",
+                         "route": "cuda",
+                         "source": "tidb_tpu_torch/ops/kernels/csrc/"
+                                   "merge_states.cu",
+                         "replaces": "tidb_tpu/executor/device_exec.py:1323",
+                         "bound_by": "bytes", "library_ms": None},
     }
     t_all = time.perf_counter()
+    t_phase = [t_all]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - t_phase[0]:.1f}s")
+        t_phase[0] = now
     try:
         phase_build()
+        phase_done("build")
         captured, joins = {}, {}
         dom, s, n_rows, keys = phase_sql_setup(args, captured, joins)
+        phase_done("sql set-up")
         phase_kernels(args, captured, report)
         phase_join_kernels(args, joins, keys, report)
         captured.clear()
         joins.clear()
         del keys
-        phase_main_path(dom, s, n_rows, report)
+        phase_done("kernels")
+        host_res = phase_main_path(dom, s, n_rows, report)
+        phase_done("main path")
+        rate = pinned_h2d_rate()
+        log(f"[h2d] pinned host -> device copy of 256 MiB: "
+            f"{rate / 1e9:.3f} GB/s")
+        phase_paged_sf1(args, dom, host_res, rate)
+        phase_done("paged-sf1")
+        phase_sf10(args, dom, rate, report)
+        phase_done("sf10")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

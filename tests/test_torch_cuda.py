@@ -9,8 +9,9 @@ with nvcc on first use) and skip elsewhere:
 reference's tests; the card's machine need not have it.)
 
 Tolerances: the expression VM and the top-k sort must match exactly; the
-aggregate's integers, keys and NULL flags exactly, its float sums within
-rtol 1e-9 / atol 1e-12 (atomics add in a different order every run).
+aggregate's and the partial-state merge's integers, keys and NULL flags
+exactly, their float sums within rtol 1e-9 / atol 1e-12 (atomics add in
+a different order every run).
 """
 
 import numpy as np
@@ -311,3 +312,75 @@ def test_join_kernels_edge_cases(dev):
     want = join_probe.key_range_plain(k2, [none, none], none, k2,
                                       [none, none], none)
     _same(list(got), list(want), "range, nothing valid")
+
+
+# -- the partial-state merge (K8/K9 merge_states) ------------------------------
+
+def _k1_states(dev, rng, n_parts, pack, n=50_000):
+    """Partial states as the streamed path makes them: K1 (CUDA) over
+    seeded blocks of rows with two keys (some NULL) and every merge
+    op's input."""
+    ops = ("sum_i", "sum_f", "min", "max", "first", "count")
+    parts = []
+    for _p in range(n_parts):
+        keys = (_up(rng.integers(0, 100, n), dev), _up(rng.integers(0, 3, n),
+                                                       dev))
+        knulls = (_up(rng.random(n) < 0.02, dev), _up(np.zeros(n, bool), dev))
+        vi = _up(rng.integers(-10**9, 10**9, n), dev)
+        vf = _up(rng.standard_normal(n), dev)
+        vn = _up(rng.random(n) < 0.1, dev)
+        mask = _up(rng.random(n) < 0.9, dev)
+        parts.append(groupby_agg.groupby_agg(
+            keys, knulls, (vi, vf, vi, vf, vi, vi), (vn,) * 6, mask, 2, ops,
+            1 << 9, pack))
+    merge_ops = ("sum_i", "sum_f", "min", "max", "first", "sum_i")
+    return parts, merge_ops
+
+
+@pytest.mark.parametrize("pack", [((7, 0), (2, 0)), None],
+                         ids=["pack", "hash"])
+@pytest.mark.parametrize("merge_cap", [16, 1 << 9], ids=["growth", "fits"])
+def test_merge_states_matches_plain(dev, pack, merge_cap):
+    from tidb_tpu_torch.ops.kernels import merge_states
+    rng = np.random.default_rng(4)
+    parts, merge_ops = _k1_states(dev, rng, 6, pack)
+    before = merge_states.LAUNCHES[0]
+    k = merge_states.merge(parts, 2, merge_ops, merge_cap, pack)
+    p = merge_states.merge_plain(parts, 2, merge_ops, merge_cap, pack)
+    torch.cuda.synchronize()
+    assert merge_states.LAUNCHES[0] == before + 1
+    ng = int(k[4])
+    assert ng == int(p[4]) and ng > 16
+    lim = min(ng, merge_cap)
+    assert torch.equal(k[5], p[5])
+    for a, b in zip(k[0] + k[1], p[0] + p[1]):
+        assert torch.equal(a[:lim], b[:lim])
+    for j, op in enumerate(merge_ops):
+        assert torch.equal(k[3][j][:lim], p[3][j][:lim]), op
+        live = ~k[3][j][:lim]
+        a, b = k[2][j][:lim][live], p[2][j][:lim][live]
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
+        else:
+            assert torch.equal(a, b), op
+
+
+@pytest.mark.parametrize("pack", [((7, 0), (2, 0)), None],
+                         ids=["pack", "hash"])
+def test_merge_states_of_empty_parts(dev, pack):
+    """Parts whose n_groups is 0 (a block the filter emptied) merge to no
+    group; one live part among empty ones merges to its own groups."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    rng = np.random.default_rng(6)
+    parts, merge_ops = _k1_states(dev, rng, 3, pack)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    empty = [p[:4] + (zero,) + p[5:] for p in parts]
+    for case in (empty, empty[:1] + parts[1:2] + empty[2:]):
+        k = merge_states.merge(case, 2, merge_ops, 1 << 9, pack)
+        p = merge_states.merge_plain(case, 2, merge_ops, 1 << 9, pack)
+        torch.cuda.synchronize()
+        ng = int(k[4])
+        assert ng == int(p[4]) == (0 if case is empty
+                                   else int(parts[1][4]))
+        for a, b in zip(k[0] + k[1] + k[3], p[0] + p[1] + p[3]):
+            assert torch.equal(a[:ng], b[:ng])

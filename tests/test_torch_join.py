@@ -665,22 +665,23 @@ def test_gen_tpch_matches_bench_gen_all(bench_kits, table):
 @pytest.mark.parametrize("paged", [False, True])
 def test_paged_gate_matches_reference(bench_kits, monkeypatch, paged):
     """The reference pages a probe longer than max(_PAGED_MIN_ROWS,
-    4 x tidb_device_stream_rows); the port, whose paged probe is not
-    ported yet, declines exactly there (the host engine answers) and runs
-    the resident fragment below it."""
+    4 x tidb_device_stream_rows); the port pages exactly there (its paged
+    probe, tests/test_torch_paged.py) and runs the resident fragment
+    below it."""
     ref, port = bench_kits
     n_line = 6001
     monkeypatch.setattr(rdj, "_PAGED_MIN_ROWS", n_line - 1 if paged
                         else n_line)
     monkeypatch.setattr(pdj, "_PAGED_MIN_ROWS", n_line - 1 if paged
                         else n_line)
-    paged_runs = []
-    orig = rdj._paged_join_agg
+    paged_runs = {"ref": [], "port": []}
+    for mod, key in ((rdj, "ref"), (pdj, "port")):
+        orig = mod._paged_join_agg
 
-    def paged_spy(*a, **kw):
-        paged_runs.append(1)
-        return orig(*a, **kw)
-    monkeypatch.setattr(rdj, "_paged_join_agg", paged_spy)
+        def paged_spy(*a, _o=orig, _k=key, **kw):
+            paged_runs[_k].append(1)
+            return _o(*a, **kw)
+        monkeypatch.setattr(mod, "_paged_join_agg", paged_spy)
     spy = _Spy(monkeypatch)
     for tk in (ref, port):
         tk.must_exec("set tidb_executor_engine = 'tpu'")
@@ -693,8 +694,9 @@ def test_paged_gate_matches_reference(bench_kits, monkeypatch, paged):
         for tk in (ref, port):
             tk.must_exec("set tidb_device_stream_rows = 0")
     assert _rows_equal(got, want)
-    assert bool(paged_runs) is paged
-    assert bool(spy.runs["port"]) is not paged
+    assert bool(paged_runs["ref"]) is paged
+    assert bool(paged_runs["port"]) is paged
+    assert spy.runs["port"]
 
 
 def test_post_join_compaction_matches_reference(monkeypatch):

@@ -9,6 +9,8 @@ and compare their answers:
   benchmark's bulk loader (``bench.py _install``): numpy arrays, or
   ``(codes, dictionary)`` pairs for dictionary-encoded strings, installed
   through ``columnar_cache.install_bulk``;
+* :func:`install_paged_numpy` — the same arrays as a paged (disk-backed,
+  memmap) table, as ``bench.py gen_all`` writes its big tables from SF5;
 * :func:`to_torch` — the numpy argument tree of ``_agg_kernel`` /
   ``_topk_indices`` as tensors on a device;
 * :func:`gen_lineitem` — the TPC-H-shaped ``lineitem`` generator of the
@@ -20,9 +22,12 @@ and compare their answers:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from .storage.paged import DEFAULT_PAGE_ROWS, PagedTableWriter
 from .utils.chunk import Column
 
 #: the reference benchmark's lineitem schema (bench.py gen_all)
@@ -102,6 +107,36 @@ def install_bulk_numpy(domain, db: str, table: str, data: dict, n: int):
             columns[c.id] = Column(c.ftype, np.asarray(arr), z)
     return domain.columnar_cache.install_bulk(
         info, columns, np.arange(1, n + 1, dtype=np.int64))
+
+
+def install_paged_numpy(domain, db: str, table: str, data: dict, n: int,
+                        root: str, page_rows: int = DEFAULT_PAGE_ROWS):
+    """Install `data` (as for :func:`install_bulk_numpy`) as a PAGED
+    table: the arrays go page by page through ``PagedTableWriter`` into
+    column files under `root`, string columns as codes into their sorted
+    dictionaries (``set_dictionary``, as ``bench.py gen_all`` writes its
+    paged tables), and the memmap-backed columns are installed through
+    the bulk loader.  The rows are exactly those of a bulk install of
+    the same arrays."""
+    info = domain.infoschema().table_by_name(db, table)
+    w = PagedTableWriter(root, info)
+    remaps = {}
+    for name, arr in data.items():
+        if isinstance(arr, tuple):
+            codes, dictionary = arr
+            d = np.asarray(dictionary, dtype=object)
+            order = np.argsort(d)
+            remap = np.empty(len(d), dtype=np.int32)
+            remap[order] = np.arange(len(d), dtype=np.int32)
+            w.set_dictionary(name, d[order])
+            remaps[name] = remap
+    for lo in range(0, n, page_rows):
+        hi = min(lo + page_rows, n)
+        w.append({name: (remaps[name][arr[0][lo:hi]]
+                         if isinstance(arr, tuple) else arr[lo:hi])
+                  for name, arr in data.items()})
+    columns, handles = w.finalize()
+    return domain.columnar_cache.install_bulk(info, columns, handles)
 
 
 def to_torch(tree, device):
@@ -211,14 +246,22 @@ def gen_tpch(sf: float, seed: int = 42, dim_seed: int = 7) -> dict:
     return out
 
 
+#: the tables ``bench.py gen_all`` writes paged from SF5 on
+PAGED_TABLES = ("lineitem", "orders")
+
+
 def install_tpch(execute, domain, db: str, tables: dict,
-                 analyze: bool = True):
+                 analyze: bool = True, paged_root: str | None = None):
     """Create database `db` with the eight-table schema, install `tables`
     (:func:`gen_tpch`'s output) through the bulk loader, insert the
     ``nation`` and ``region`` rows and, with `analyze`, ANALYZE all eight
     tables, as ``bench.py gen_all`` does (without statistics, Q5's greedy
     join order builds a >2x-lineitem intermediate).  `execute` runs one
-    SQL statement (``session.execute`` or ``TestKit.must_exec``)."""
+    SQL statement (``session.execute`` or ``TestKit.must_exec``).
+
+    With `paged_root`, ``lineitem`` and ``orders`` go in as paged tables
+    (:func:`install_paged_numpy`, files under ``paged_root/<table>``),
+    the other six as bulk tables."""
     execute(f"create database if not exists {db}")
     execute(f"use {db}")
     for ddl in TPCH_DDL:
@@ -226,7 +269,11 @@ def install_tpch(execute, domain, db: str, tables: dict,
     for name in TPCH_TABLES:
         if name in tables:
             data, n = tables[name]
-            install_bulk_numpy(domain, db, name, data, n)
+            if paged_root is not None and name in PAGED_TABLES:
+                install_paged_numpy(domain, db, name, data, n,
+                                    os.path.join(paged_root, name))
+            else:
+                install_bulk_numpy(domain, db, name, data, n)
     for i, (nm, rk) in enumerate(NATIONS):
         execute(f"insert into nation values ({i}, '{nm}', {rk})")
     for i, r in enumerate(REGIONS):

@@ -8,9 +8,11 @@ one program for the mask, keys and values) and the group-by aggregate
 reads back `capacity`-bounded results.  An ORDER BY ... LIMIT over the
 groups selects its rows on the device (ops/kernels/sort_topk.py).
 
-The whole-table scan-aggregate path and the standalone join match
-(``device_join_keys``: K4 + K5a + K5b through ``ops/device.py
-device_join_match``) are ported.  The streamed aggregate and window
+The whole-table scan-aggregate path, the streamed scan-aggregate
+(``device_agg_streaming``: pages through ops/stream.py, per-page K2 + K1,
+partial states folded by the merge kernel ops/kernels/merge_states.py)
+and the standalone join match (``device_join_keys``: K4 + K5a + K5b
+through ``ops/device.py device_join_match``) are ported.  Window
 functions raise DeviceUnsupported until their ROADMAP queue-1 item ports
 them, so those queries run on the host engine.
 """
@@ -26,9 +28,9 @@ import torch
 from ..errors import TiDBError
 from ..expression import phys_kind, K_DEC, K_FLOAT, K_STR, K_DATE
 from ..expression.core import Column as ExprColumn
-from ..ops import device as dev
+from ..ops import device as dev, stream
 from ..ops.device import DeviceUnsupported
-from ..ops.kernels import expr_vm, sort_topk
+from ..ops.kernels import expr_vm, merge_states, sort_topk
 from ..sqltypes import POW10
 from ..utils.chunk import Chunk, Column, np_dtype_for
 
@@ -1004,10 +1006,294 @@ _MERGE_OPS = {"count": "sum_i", "sum_i": "sum_i", "sum_f": "sum_f",
 
 def device_agg_streaming(plan, chunk: Chunk, conds, batch_rows: int,
                          ctx=None, allow_single=False) -> Chunk:
-    """The block-streamed aggregate (reference K8) is not in this slice:
-    inputs above the batch bound run on the host engine."""
-    raise DeviceUnsupported("not yet ported: ROADMAP queue 1 item 4 "
-                            "(streamed aggregate)")
+    """Streamed fused filter+group+aggregate: the input is cut into
+    `batch_rows` blocks; each block's columns go to the device through
+    the page stager (ops/stream.py: pinned ring, side copy stream) and
+    run the SAME pipeline (K2 + K1) while the next block's copy is
+    queued (reference: the cop-iterator worker overlap,
+    store/copr/coprocessor.go:399); per-block partial states stay on the
+    device and fold through the partial-state merge (K8,
+    ops/kernels/merge_states.py) every `_MERGE_BUDGET_ROWS // capacity`
+    blocks; one fetch of the final state finishes the query.
+
+    Device memory is bounded by 2 staged blocks + the buffered partials +
+    the running state instead of the full table — the long-operand
+    scaling path (SURVEY §5)."""
+    n = chunk.num_rows
+    if n == 0:
+        raise DeviceUnsupported("empty input")
+    if batch_rows <= 0 or (n <= batch_rows and not allow_single):
+        # whole-input kernel is cheaper — except for paged inputs, whose
+        # memmap slices must flow through here regardless of block count
+        raise DeviceUnsupported("input fits one batch")
+    used = _agg_used_columns(plan, conds)
+    if not used:
+        raise DeviceUnsupported("no columns")
+
+    # full-column dictionaries (cached on the parent Column): batch slices
+    # share codes, so group keys agree across blocks
+    col_arrays = {}
+    dcols = {}
+    for idx in used:
+        dcols[idx], col_arrays[idx] = dev.meta_device_col(chunk.columns[idx])
+
+    cond_fns = [dev.compile_expr(c, dcols) for c in conds]
+    (key_fns, key_meta, key_pack, val_plan, agg_ops,
+     slots) = _plan_agg(plan, dcols)
+    n_keys = max(len(key_fns), 1)
+    if tuple(agg_ops) == ("cnt_dist",):
+        # COUNT(DISTINCT x) streams through pair dedup: each block
+        # deduplicates (group, x) PAIRS (an agg whose keys are
+        # group+value), and the final cnt_dist over the concatenated
+        # pair rows is exact even with cross-block duplicates (reference:
+        # the two-phase distinct agg, executor/aggregate.go partial
+        # dedup + final count)
+        return _stream_count_distinct(plan, conds, chunk, col_arrays,
+                                      dcols, cond_fns, key_fns, key_meta,
+                                      key_pack, val_plan, slots,
+                                      batch_rows, ctx)
+    if any(op not in _MERGE_OPS for op in agg_ops):
+        # other distinct/non-mergeable partial states can't merge across
+        # blocks; the whole-input kernel handles them
+        raise DeviceUnsupported("non-mergeable agg in streamed pipeline")
+    merge_ops = tuple(_MERGE_OPS[op] for op in agg_ops)
+    sig_exprs, dict_refs = _agg_sig(plan, conds, dcols)
+
+    est = _estimate_groups(plan, n, ctx)
+    capacity = dev.next_pow2(min(batch_rows, max(est, 16)))
+    merge_cap = capacity  # grows to the true total on merge overflow
+    stats = StreamStats("stream")
+    stager = stream.PageStager(col_arrays, batch_rows, dev.device())
+    try:
+        for _attempt in range(8):
+            key = (sig_exprs, "stream", capacity, key_pack, tuple(agg_ops))
+            cap = capacity
+
+            def build(cap=cap):
+                return _build_pipeline(cond_fns, key_fns, n_keys, val_plan,
+                                       tuple(agg_ops), cap, key_pack)
+            fn = acquire_pipeline(key, build, dict_refs, ctx=ctx,
+                                  shape="agg", sig=sig_exprs, ladder=False)
+            k_flush = max(1, _MERGE_BUDGET_ROWS // capacity)
+            state = None
+            buffered = []
+            max_ng = 0
+            overflow = False
+            for lo in range(0, n, batch_rows):
+                hi = min(lo + batch_rows, n)
+                # every block — the tail included — pads to the SAME
+                # batch_rows shape (live rows masked by n_live), so one
+                # pipeline serves the whole stream at any input size
+                env, slot = stager.stage(lo, hi)
+                buffered.append(stats.dispatch(fn, env, hi - lo))
+                stager.release(slot)
+                if len(buffered) >= k_flush:
+                    # incremental fold: the device holds at most k_flush
+                    # partials + the running state, never all
+                    # n / batch_rows of them
+                    max_ng = max(max_ng, *stats.read_groups(buffered))
+                    if max_ng > capacity:
+                        overflow = True
+                        break
+                    state, merge_cap = stats.merge(
+                        state, buffered, merge_cap, n_keys, len(val_plan),
+                        merge_ops, key_pack)
+                    buffered = []
+            if not overflow and buffered:
+                max_ng = max(max_ng, *stats.read_groups(buffered))
+                if max_ng <= capacity:
+                    state, merge_cap = stats.merge(
+                        state, buffered, merge_cap, n_keys, len(val_plan),
+                        merge_ops, key_pack)
+                    buffered = []
+            if overflow or max_ng > capacity:
+                capacity = dev.next_pow2(max_ng)
+                continue
+            break
+        else:
+            raise DeviceUnsupported("streamed agg capacity did not converge")
+    finally:
+        stats.take(stager)
+    if state is None:
+        raise DeviceUnsupported("empty streamed input")
+    t0 = _time.perf_counter()
+    key_out, key_null_out, results, result_nulls, n_groups = _fetch(
+        tuple(state[:5]))
+    ng = int(n_groups)
+    if ng == 0 and not plan.group_exprs:
+        raise DeviceUnsupported("empty global aggregate")
+    out = _assemble_agg(plan, key_meta, slots, dcols,
+                        (key_out, key_null_out, results, result_nulls), ng)
+    stats.finish(t0, capacity, ng)
+    return out
+
+
+class StreamStats:
+    """Stage timings of one streamed or paged run, published to the
+    thread's ``device_join.LAST_PAGED_STATS`` (EXPLAIN ANALYZE, and the
+    supervisor carries it across its worker thread): the stager's pages,
+    bytes, slice_s (host slicing into the pinned ring) and h2d_s (device
+    copy time), dispatch_s (queuing each page's kernels), sync_s (the
+    host reads of the buffered partials' group counts — `syncs` of
+    them), merge_s (partial-state folds, `merges` of them), fetch_s
+    (final fetch + host assembly), capacity and groups."""
+
+    def __init__(self, kind):
+        self.s = {"kind": kind, "pages": 0, "h2d_bytes": 0, "slice_s": 0.0,
+                  "h2d_s": 0.0, "dispatch_s": 0.0, "sync_s": 0.0,
+                  "syncs": 0, "merge_s": 0.0, "merges": 0}
+
+    def dispatch(self, fn, *args):
+        t0 = _time.perf_counter()
+        out = fn(*args)
+        self.s["dispatch_s"] += _time.perf_counter() - t0
+        return out
+
+    def read_groups(self, buffered):
+        """The buffered partials' group counts, in one device → host
+        copy (the reference's device_get at each flush)."""
+        t0 = _time.perf_counter()
+        ngs = torch.stack([p[4].reshape(()) for p in buffered]).tolist()
+        self.s["sync_s"] += _time.perf_counter() - t0
+        self.s["syncs"] += 1
+        return ngs
+
+    def merge(self, state, parts, merge_cap, n_keys, nvals, merge_ops,
+              key_pack):
+        t0 = _time.perf_counter()
+        out = merge_partial_states(state, parts, merge_cap, n_keys, nvals,
+                                   merge_ops, key_pack)
+        self.s["merge_s"] += _time.perf_counter() - t0
+        self.s["merges"] += 1
+        return out
+
+    def take(self, stager):
+        st = stager.close()
+        self.s["pages"] = st["pages"]
+        self.s["h2d_bytes"] = st["h2d_bytes"]
+        self.s["slice_s"] = st["slice_s"]
+        self.s["h2d_s"] = st["h2d_s"]
+
+    def finish(self, t0, capacity, groups):
+        from .device_join import LAST_PAGED_STATS
+        self.s["fetch_s"] = _time.perf_counter() - t0
+        self.s["capacity"] = capacity
+        self.s["groups"] = groups
+        LAST_PAGED_STATS.clear()
+        LAST_PAGED_STATS.update(self.s)
+
+
+#: partial-aggregate rows buffered on device before a merge flush (shared
+#: by the streamed scan-agg and the paged probe join)
+_MERGE_BUDGET_ROWS = 1 << 25
+
+
+def _stream_count_distinct(plan, conds, chunk, col_arrays, dcols, cond_fns,
+                           key_fns, key_meta, key_pack, val_plan, slots,
+                           batch_rows, ctx):
+    """Streamed COUNT(DISTINCT x): per-block dedup of (group, x) pairs
+    (K2 + K1 `first`), then one K1 cnt_dist over the concatenated live
+    pair rows."""
+    n = chunk.num_rows
+    val_fn = val_plan[0][0]
+    # block program: group keys + value as ONE key set, dedup via 'first'
+    pair_fns = list(key_fns) + [val_fn]
+    n_pair_keys = len(pair_fns)
+    est = _estimate_groups(plan, n, ctx)
+    # distinct pairs per block bounded by the block; estimate via group
+    # est * a small per-group distinct factor, discovered on overflow
+    capacity = dev.next_pow2(min(batch_rows, max(est * 4, 64)))
+    n_blocks = (n + batch_rows - 1) // batch_rows
+    sig_exprs, dict_refs = _agg_sig(plan, conds, dcols)
+    stats = StreamStats("stream")
+    stager = stream.PageStager(col_arrays, batch_rows, dev.device())
+    try:
+        for _attempt in range(8):
+            if n_blocks * capacity > 4 * _MERGE_BUDGET_ROWS:
+                # unlike the mergeable path this buffers EVERY block's pair
+                # state — past the budget, degrade to the fallback instead
+                # of exhausting device memory
+                raise DeviceUnsupported(
+                    "distinct pair state exceeds the stream budget")
+            key = (sig_exprs, "cntd", capacity)
+
+            def build(cap=capacity):
+                return _build_pipeline(cond_fns, pair_fns, n_pair_keys,
+                                       [(val_fn, "int")], ("first",), cap,
+                                       None)
+            fn = acquire_pipeline(key, build, dict_refs, ctx=ctx,
+                                  shape="agg", sig=sig_exprs, ladder=False)
+            partials = []
+            for lo in range(0, n, batch_rows):
+                hi = min(lo + batch_rows, n)
+                env, slot = stager.stage(lo, hi)
+                partials.append(stats.dispatch(fn, env, hi - lo))
+                stager.release(slot)
+            counts = stats.read_groups(partials)
+            if max(counts) <= capacity:
+                break
+            capacity = dev.next_pow2(max(counts))
+        else:
+            raise DeviceUnsupported("distinct pair capacity did not converge")
+    finally:
+        stats.take(stager)
+
+    t0 = _time.perf_counter()
+    n_keys = max(len(key_fns), 1)
+    d = partials[0][4].device
+    # concatenated pair rows: group keys back apart from the value key
+    if key_fns:
+        key_cat = tuple(torch.cat([p[0][k] for p in partials])
+                        for k in range(n_keys))
+        key_null_cat = tuple(torch.cat([p[1][k] for p in partials])
+                             for k in range(n_keys))
+    else:
+        # global COUNT(DISTINCT): one group — constant key, NOT the value
+        tot = sum(int(p[0][0].shape[0]) for p in partials)
+        key_cat = (torch.zeros(tot, dtype=torch.int64, device=d),)
+        key_null_cat = (torch.zeros(tot, dtype=torch.bool, device=d),)
+    val_cat = (torch.cat([p[0][n_pair_keys - 1] for p in partials]),)
+    val_null_cat = (torch.cat([p[1][n_pair_keys - 1] for p in partials]),)
+    mask = torch.cat([torch.arange(capacity, device=d) < p[4]
+                      for p in partials])
+    total = int(mask.shape[0])
+    final_cap = dev.next_pow2(max(est, 16))
+    while True:
+        out = dev._agg_impl(
+            key_cat, key_null_cat, val_cat, val_null_cat, mask,
+            n_keys=n_keys, agg_ops=("cnt_dist",),
+            capacity=min(final_cap, dev.next_pow2(total)), pack=key_pack)
+        key_out, key_null_out, results, result_nulls, n_groups = _fetch(
+            tuple(out[:5]))
+        ng = int(n_groups)
+        if ng <= final_cap:
+            break
+        final_cap = dev.next_pow2(ng)
+    if ng == 0 and not plan.group_exprs:
+        raise DeviceUnsupported("empty global aggregate")
+    res = _assemble_agg(plan, key_meta, slots, dcols,
+                        (key_out, key_null_out, results, result_nulls), ng)
+    stats.finish(t0, capacity, ng)
+    return res
+
+
+def merge_partial_states(state, parts, merge_cap, n_keys, nvals, merge_ops,
+                         key_pack):
+    """Fold buffered partial-agg states (+ the running state) into ONE
+    merged state of `merge_cap` output slots through the partial-state
+    merge (ops/kernels/merge_states.py); grows merge_cap on overflow
+    (inputs stay alive, so the retry is exact). Returns (state,
+    merge_cap) — state is an _agg_impl output tuple whose [4] is the live
+    group count.  The reference's numpy fold for its XLA-CPU backend is
+    not carried over: the CPU runs the merge's plain version."""
+    alls = ([state] if state is not None else []) + list(parts)
+    while True:
+        out = merge_states.merge(alls, n_keys, merge_ops, merge_cap,
+                                 key_pack)
+        ng = int(out[4])
+        if ng <= merge_cap:
+            return out, merge_cap
+        merge_cap = dev.next_pow2(ng)
 
 
 def device_window(p, chunk: Chunk, ctx=None) -> Chunk:

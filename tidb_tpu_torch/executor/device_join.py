@@ -40,10 +40,13 @@ filters, topped by a group-by aggregate. Join kinds:
   exactly the decorrelated EXISTS/IN plans), no residual conds.
 Anything else raises DeviceUnsupported and falls back to the host path.
 
-Not ported yet (ROADMAP queue 1 item 4): the paged probe
-(``_paged_join_agg``) and the hybrid hash join.  Where the reference
-would take one of them, ``device_join_agg`` raises DeviceUnsupported
-under the reference's own gate, and the host engine runs the query.
+A probe too long to stay resident (or a disk-backed one) pages:
+``_paged_join_agg`` stages the probe leaf page by page (ops/stream.py),
+runs the fragment per page and folds the pages' partial states with the
+merge kernel (ops/kernels/merge_states.py).  Not ported yet (ROADMAP
+queue 1 item 4): the hybrid hash join.  Where the reference would take
+it, ``device_join_agg`` raises DeviceUnsupported under the reference's
+own gate, and the host engine runs the query.
 """
 
 from __future__ import annotations
@@ -65,8 +68,6 @@ from .device_exec import (
     acquire_pipeline)
 from .join_index import build_join_index
 
-_NOT_PORTED_PAGED = ("not yet ported: ROADMAP queue 1 item 4 (paged join "
-                     "probe)")
 _NOT_PORTED_HYBRID = ("not yet ported: ROADMAP queue 1 item 4 (hybrid hash "
                       "join)")
 
@@ -1004,10 +1005,10 @@ def device_join_agg(agg_plan, agg_conds, child_exec, ctx):
                     "left join residual conds need a unique build")
 
     # paged-probe dispatch: a disk-backed (or huge) fact side must stream
-    # pages — uploading it whole would exceed device memory.  The paged
-    # probe and the hybrid hash join are not ported yet: where the
-    # reference would take either, the port declines under the
-    # reference's own gate and the host engine runs the query
+    # pages — uploading it whole would exceed device memory.  The hybrid
+    # hash join is not ported yet: where the reference would take it, the
+    # port declines under the reference's own gate and the host engine
+    # runs the query
     from ..storage.paged import chunk_is_paged, DEFAULT_PAGE_ROWS
     probe = _probe_spine(root)
     any_paged = any(chunk_is_paged(leaf.chunk) for leaf in leaves)
@@ -1046,7 +1047,14 @@ def device_join_agg(agg_plan, agg_conds, child_exec, ctx):
             page_rows = DEFAULT_PAGE_ROWS
         if paged or (not stream_off and probe.chunk.num_rows
                      > max(_PAGED_MIN_ROWS, page_rows * 4)):
-            raise DeviceUnsupported(_NOT_PORTED_PAGED)
+            try:
+                return _paged_join_agg(root, leaves, joins, probe, agg_plan,
+                                       agg_conds, ctx, page_rows)
+            except DeviceUnsupported:
+                if paged:
+                    # whole-table upload of a disk-resident fact is not a
+                    # fallback — let the host path stream it instead
+                    raise
     # canonical row buckets per leaf: uploads pad to the bucket, the
     # program masks each leaf at its traced live count — a delta append
     # that stays inside the bucket reuses the compiled fragment
@@ -1356,3 +1364,161 @@ def fragment_sig(leaves, joins, agg_conds, agg_plan):
         f"{d.name}:{_expr_sig(d.args[0]) if d.args else ''}"
         for d in agg_plan.aggs))
     return "\n".join(parts)
+
+
+def _paged_join_agg(root, leaves, joins, probe, agg_plan, agg_conds, ctx,
+                    page_rows):
+    """Streamed-probe execution of an all-unique-build join chain: the
+    fact leaf is cut into `page_rows` pages, staged to the device through
+    the page stager (ops/stream.py); each page runs the SAME fragment
+    program (K2 + K5a + K5b count + K1; dimension tables and their join
+    indexes stay resident across pages); per-page partial states buffer
+    on the device and fold into one running merged state through the
+    partial-state merge (ops/kernels/merge_states.py).  Device memory is
+    bounded by 2 staged pages + buffered partials + merge state — never
+    the fact table.  The engine's cop-paging analog (reference
+    kv/kv.go:349-350: the coprocessor streams a large scan in pages; here
+    each page carries the whole join+agg fragment with it).  The
+    reference's numpy tail for its XLA-CPU backend is not carried over:
+    the CPU runs the same loop with the kernels' plain versions."""
+    if any(jn.strategy is None or jn.strategy[0] != "uniq" for jn in joins):
+        raise DeviceUnsupported("paged probe requires all-unique builds")
+    # planning view is metadata-only for EVERY leaf: the only uploads are
+    # the pruned env_dim ones below, AFTER the resident-budget check
+    dcols = _global_dcols(leaves, meta_leaf_ids=frozenset(
+        leaf.leaf_id for leaf in leaves))
+    agg_meta_full = _plan_agg(agg_plan, dcols)
+    key_fns, key_meta, key_pack, val_plan, agg_ops, slots = agg_meta_full
+    from ..ops import stream
+    from .device_exec import (
+        _MERGE_BUDGET_ROWS, _MERGE_OPS, AggFetch, StreamStats, resolve_topn)
+    if any(op not in _MERGE_OPS for op in agg_ops):
+        raise DeviceUnsupported("non-mergeable agg in paged fragment")
+    merge_ops = tuple(_MERGE_OPS[op] for op in agg_ops)
+    agg_meta = (key_fns, val_plan, agg_ops, slots)
+
+    used = _fragment_used_cols(leaves, joins, agg_plan, agg_conds)
+    # leaf_rel reads each leaf's row count off its first env entry — keep
+    # at least one column per leaf alive
+    for leaf in leaves:
+        if not any(leaf.offset + i in used for i in range(leaf.ncols)):
+            used.add(leaf.offset)
+    from ..storage.paged import chunk_is_paged
+    per_double = dev.shape_buckets(ctx)
+    env_dim = {}
+    for leaf in leaves:
+        if leaf.leaf_id == probe.leaf_id:
+            continue
+        lused = [i for i in range(leaf.ncols) if leaf.offset + i in used]
+        if chunk_is_paged(leaf.chunk):
+            est = 8 * leaf.chunk.num_rows * len(lused)
+            if est > _dim_resident_budget():
+                raise DeviceUnsupported(
+                    "paged build-side leaf exceeds resident budget")
+        dim_bucket = dev.bucket_rows(leaf.chunk.num_rows, per_double)
+        for i in lused:
+            dc = dev.to_device_col(leaf.chunk.columns[i],
+                                   bucket=dim_bucket)
+            env_dim[leaf.offset + i] = (dc.data, dc.nulls)
+    probe_arrays = {
+        probe.offset + i: dev.meta_device_col(c)[1]
+        for i, c in enumerate(probe.chunk.columns)
+        if probe.offset + i in used}
+    jidx = tuple(jn.strategy[2].device_arrays() for jn in joins)
+    sig = fragment_sig(leaves, joins, agg_conds, agg_plan) + f"|pg{page_rows}"
+    dict_refs = tuple(dc.dictionary for dc in dcols.values()
+                      if dc.dictionary is not None)
+
+    n = probe.chunk.num_rows
+    n_keys = max(len(key_fns), 1)
+    nvals = len(val_plan)
+    learned = _CAP_STORE.get((sig, "agg"))
+    if learned is not None:
+        capacity = dev.next_pow2(max(learned, 16))
+    else:
+        est = _estimate_groups(agg_plan, min(n, page_rows), ctx)
+        capacity = dev.next_pow2(min(page_rows, max(est, 16)))
+    learned_total = _CAP_STORE.get((sig, "groups"))
+    merge_cap = dev.next_pow2(max(learned_total or capacity, 16))
+
+    base_lives = [int(leaf.chunk.num_rows) for leaf in leaves]
+
+    def page_lives(hi, lo):
+        lives = list(base_lives)
+        lives[probe.leaf_id] = hi - lo
+        return tuple(lives)
+
+    for jn in joins:
+        jn.cap = page_rows  # every join is a probe-shaped gather
+    stats = StreamStats("paged")
+    stager = stream.PageStager(probe_arrays, page_rows, dev.device())
+    try:
+        for _attempt in range(4):
+            caps = [page_rows] * len(joins)
+            key = (sig, tuple(caps), capacity, key_pack, tuple(agg_ops),
+                   None, "paged")
+
+            def build(caps=tuple(caps), cap=capacity):
+                return compile_fragment(root, leaves, joins, agg_plan,
+                                        agg_conds, list(caps), cap, key_pack,
+                                        agg_meta)
+            # per-page env is assembled inside the loop below, so there is
+            # no whole-call argument list to record
+            fn = acquire_pipeline(key, build, dict_refs, ctx=ctx,
+                                  shape="join", sig=sig)
+            k_flush = max(1, _MERGE_BUDGET_ROWS // capacity)
+            state = None
+            buffered = []
+            max_ng = 0
+            overflow = False
+            for lo in range(0, n, page_rows):
+                hi = min(lo + page_rows, n)
+                penv, slot = stager.stage(lo, hi)
+                env = dict(env_dim)
+                env.update(penv)
+                agg_out, _ovf, _sovf, _kept = stats.dispatch(
+                    fn, env, jidx, page_lives(hi, lo))
+                stager.release(slot)
+                buffered.append(agg_out)
+                if len(buffered) >= k_flush:
+                    max_ng = max(max_ng, *stats.read_groups(buffered))
+                    if max_ng > capacity:
+                        overflow = True
+                        break
+                    state, merge_cap = stats.merge(
+                        state, buffered, merge_cap, n_keys, nvals,
+                        merge_ops, key_pack)
+                    buffered = []
+            if not overflow and buffered:
+                max_ng = max(max_ng, *stats.read_groups(buffered))
+                if max_ng <= capacity:
+                    state, merge_cap = stats.merge(
+                        state, buffered, merge_cap, n_keys, nvals,
+                        merge_ops, key_pack)
+                    buffered = []
+            if overflow or max_ng > capacity:
+                # a page's group count exceeded the partial capacity:
+                # restart the pass at the observed size (remembered, so
+                # the discovery restart happens once per fragment ever)
+                capacity = dev.next_pow2(max_ng)
+                _cap_store_put((sig, "agg"), max_ng)
+                continue
+            _cap_store_put((sig, "agg"), max(max_ng, 1))
+            break
+        else:
+            raise DeviceUnsupported(
+                "paged fragment capacity did not converge")
+    finally:
+        stats.take(stager)
+    if state is None:
+        raise DeviceUnsupported("empty paged fragment input")
+    t0 = _time.perf_counter()
+    f = AggFetch(state, topn=resolve_topn(agg_plan, slots))
+    ng = f.ng
+    _cap_store_put((sig, "groups"), ng)
+    if ng == 0 and not agg_plan.group_exprs:
+        raise DeviceUnsupported("empty global aggregate")
+    body = f.body()
+    out = _assemble_agg(agg_plan, key_meta, slots, dcols, body, f.out_rows)
+    stats.finish(t0, capacity, ng)
+    return out

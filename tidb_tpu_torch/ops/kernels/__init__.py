@@ -9,7 +9,10 @@ PyTorch version:
 ``join_probe``  K5a — the join probe (key packing, dense/sorted index
                 lookup, unique / count / existence modes);
 ``join_expand`` K5b — the CSR expansion, post-join compaction and join
-                totals (a hand-written scan).
+                totals (a hand-written scan);
+``merge_states`` K8/K9 — the fold of partial aggregate states (the
+                streamed aggregate's and the paged join's): a gather
+                of each state's live slots, then K1's kernels.
 
 Sources live in ``csrc/``; ``build.py`` compiles them with nvcc for
 sm_90a into one shared library at first use.  A wrapper launches its

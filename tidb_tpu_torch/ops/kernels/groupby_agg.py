@@ -193,6 +193,17 @@ def groupby_agg(key_cols, key_nulls, val_cols, val_nulls, mask, n_keys,
     if mask.device.type == "cpu":
         return groupby_plain(key_cols, key_nulls, val_cols, val_nulls, mask,
                              n_keys, agg_ops, capacity, pack)
+    out = groupby_cuda(key_cols, key_nulls, val_cols, val_nulls, mask,
+                       n_keys, agg_ops, capacity, pack)
+    LAUNCHES[0] += 1
+    return out
+
+
+def groupby_cuda(key_cols, key_nulls, val_cols, val_nulls, mask, n_keys,
+                 agg_ops, capacity, pack=None):
+    """The CUDA kernels of :func:`groupby_agg` on CUDA tensors, uncounted:
+    the entry of K1 and of the partial-state merge (merge_states.py),
+    which counts its own launches."""
     _check(key_cols, key_nulls, val_cols, val_nulls, mask, agg_ops)
     dev = mask.device
     i64 = torch.int64
@@ -307,6 +318,5 @@ def groupby_agg(key_cols, key_nulls, val_cols, val_nulls, mask, n_keys,
         hdr.ctypes.data, out_hdr.ctypes.data, gslot.data_ptr(),
         ptr(order), ng_t.data_ptr(), capacity, ctypes.c_void_p(stream)),
         "gb_emit_run")
-    LAUNCHES[0] += 1
     return (tuple(key_out), tuple(key_null_out), tuple(results),
             tuple(result_nulls), ng_t[0], valid)

@@ -143,8 +143,10 @@ for _v in [
     SysVar("tidb_mesh_shape", SCOPE_BOTH, "1", "str"),
     # streamed device pipeline batch bound: bounds HBM + transfer memory
     # for larger-than-memory inputs at the cost of re-transfer per run
-    # (0 = off: whole-table transfers, HBM-resident column cache)
-    SysVar("tidb_device_stream_rows", SCOPE_BOTH, "0", "int", 0),
+    # (0 = auto: paged inputs and inputs over 4 default pages stream;
+    # -1 = resident inputs never stream, the escape hatch that
+    # executor/exec_select.py and executor/device_join.py read)
+    SysVar("tidb_device_stream_rows", SCOPE_BOTH, "0", "int", -1),
     # shape-canonicalization granularity: geometric row buckets per
     # doubling that device uploads pad to (ops/device.py bucket_rows) so
     # compiled XLA programs are reusable across deltas/tables/scale

@@ -38,12 +38,45 @@ def _cm_indices(key) -> list[int]:
 def build_cmsketch(values, counts) -> list[list[int]]:
     """Count-min sketch over (distinct value, count) pairs (reference:
     statistics/cmsketch.go:46): depth×width counters; lookup takes the
-    min across rows — an overestimate, never an underestimate."""
-    rows = [[0] * CM_WIDTH for _ in range(CM_DEPTH)]
-    for v, c in zip(values, counts):
-        for d, idx in enumerate(_cm_indices(_val_key(v))):
-            rows[d][idx] += int(c)
-    return rows
+    min across rows — an overestimate, never an underestimate.
+
+    Integer and bytes values (every TPC-H column) hash in one pass
+    without the per-value key canonicalization of :func:`_cm_indices`
+    and fold their counters in numpy: the same counters, several times
+    faster on tables of millions of distinct values."""
+    payload = _cm_payload(values)
+    if payload is None:
+        rows = [[0] * CM_WIDTH for _ in range(CM_DEPTH)]
+        for v, c in zip(values, counts):
+            for d, idx in enumerate(_cm_indices(_val_key(v))):
+                rows[d][idx] += int(c)
+        return rows
+    import hashlib
+    blake = hashlib.blake2b
+    digests = b"".join([blake(b, digest_size=16).digest() for b in payload])
+    h = np.frombuffer(digests, dtype="<u8").reshape(-1, 2)
+    h1, h2 = h[:, 0], h[:, 1] | np.uint64(1)
+    cnt = np.asarray(counts, dtype=np.int64)
+    rows = np.zeros((CM_DEPTH, CM_WIDTH), dtype=np.int64)
+    for d in range(CM_DEPTH):
+        idx = (h1 + np.uint64(d) * h2) % np.uint64(CM_WIDTH)
+        np.add.at(rows[d], idx.astype(np.int64), cnt)
+    return rows.tolist()
+
+
+def _cm_payload(values):
+    """The bytes :func:`_cm_indices` hashes for each value, when every
+    value is an integer (its decimal string) or bytes (its UTF-8 text,
+    decoded and encoded as :func:`_val_key` and ``str`` do); None for any
+    other kind (floats keep the per-value path)."""
+    arr = np.asarray(values)
+    if arr.dtype.kind in "iu":
+        return [str(x).encode() for x in arr.tolist()]
+    if arr.dtype == object and all(isinstance(v, (bytes, bytearray))
+                                   for v in arr):
+        return [bytes(v).decode("utf-8", "surrogateescape").encode()
+                for v in arr]
+    return None
 
 
 def cm_query(cm: list[list[int]], key) -> int:
@@ -61,12 +94,26 @@ def _val_key(v):
 
 def _column_stats(col):
     nn = ~col.nulls
-    data = col.data[nn]
     cs = {"null_count": int(col.nulls.sum())}
-    if not len(data):
-        cs["ndv"] = 0
-        return cs
-    uniques, counts = np.unique(data, return_counts=True)
+    enc = getattr(col, "_dict", None)
+    if enc is not None:
+        # dictionary-encoded strings: the distinct values and counts of
+        # the codes (the dictionary is sorted, so code order is value
+        # order) — np.unique of the object array would compare Python
+        # bytes, and a paged column would materialize
+        codes, uniq = enc
+        ucodes, counts = np.unique(np.asarray(codes)[nn], return_counts=True)
+        if not len(ucodes):
+            cs["ndv"] = 0
+            return cs
+        uniques = np.asarray(uniq, dtype=object)[ucodes]
+        data = uniques  # dtype object: no min/max/histogram below
+    else:
+        data = col.data[nn]
+        if not len(data):
+            cs["ndv"] = 0
+            return cs
+        uniques, counts = np.unique(data, return_counts=True)
     cs["ndv"] = int(len(uniques))
     # TopN: exact counts for the most frequent values
     k = min(TOPN_SIZE, len(uniques))
