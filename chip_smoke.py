@@ -36,7 +36,22 @@ Phases, each fatal on failure:
    equal the host engine's, with the same result types (every cell exact
    but in DOUBLE or FLOAT columns, which compare within rtol 1e-9 /
    atol 1e-12);
-5. ``[paged-sf1]`` — the same SF1 ``lineitem`` and ``orders`` a second
+5. ``[window]`` — on the same SF1 tables, the window shapes W1 (a share
+   of the whole partition over aggregated groups), W2 (running ranks, sum
+   and count over the raw rows, ~10,000 partitions), W3 (a rank over
+   aggregated groups, filtered) and W4 (four huge partitions, a DESC
+   decimal order key with peers, ranks, cume_dist, AVG, MIN, MAX and a
+   DOUBLE sum), and a 1.5M-partition window: K10 against its plain
+   version on each one's full captured inputs (W2, W4, 1.5M partitions;
+   integers exact, floats rtol 1e-9 / atol 1e-12), K4's window order on
+   W2 against torch.sort(stable=True) of the packed key; then, every
+   launch counter set to 0, W1-W4 on the device engine, each launching
+   K2, K4 and K10, ``engine:tpu`` on every Window in EXPLAIN ANALYZE, W2's
+   count, sum of row numbers and largest count equal to the generated
+   partition sizes, the rows equal to the host engine's; ``[window]``
+   lines with the device time, the K2 / K4 / K10 and device → host copy
+   times and the host assembly;
+6. ``[paged-sf1]`` — the same SF1 ``lineitem`` and ``orders`` a second
    time, as paged (memmap) tables in a temporary directory removed at
    exit (``carry.install_tpch``'s paged option, db ``tpch_paged``, the
    other six tables bulk, ANALYZE), ``tidb_device_stream_rows`` =
@@ -47,7 +62,7 @@ Phases, each fatal on failure:
    least 2 pages), the partial-state merge must launch, and the rows must
    equal the host engine's rows of phase 4; then a streamed
    COUNT(DISTINCT) against the host engine on the bulk tables;
-6. ``[sf10]`` — ``carry.gen_tpch(10)`` into ``tpch10`` as bulk (RAM)
+7. ``[sf10]`` — ``carry.gen_tpch(10)`` into ``tpch10`` as bulk (RAM)
    tables with ANALYZE; at the default ``tidb_device_stream_rows`` the
    reference's own gates stream the 60,012,150-row lineitem (scan
    aggregates) and page it (joins) in 15 pages of 4,194,304 rows.  The
@@ -62,8 +77,10 @@ Phases, each fatal on failure:
    ``[stream]`` line per streamed or paged run: pages, bytes host →
    device, the copies' device time, the host slicing, sync and merge
    times, and the H2D bound at the pinned rate this run measures (one
-   256 MiB copy);
-7. report — the card's name and power limit, a ``kernels`` JSON line,
+   256 MiB copy); last W2 over the SF10 lineitem on the device (bucket
+   2^26), K10 against its plain version on its inputs, its count, sum of
+   row numbers and largest count against the generated partition sizes;
+8. report — the card's name and power limit, a ``kernels`` JSON line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the ``tidb_tpu_torch`` package beside it,
@@ -182,6 +199,62 @@ JOIN_FRAGMENTS = ("q3", "q5", "q9", "q18")
 HOST_TEXT = {"q9": Q9.replace(
     "from (select n_name",
     "from (select /*+ HASH_JOIN(part, orders) */ n_name")}
+
+
+#: window shapes of TPC-DS over lineitem (the ``[window]`` phase)
+#: W1, Q98/Q12's share of its partition (no ORDER BY: the whole
+#: partition) over aggregated groups
+W1 = """
+select l_suppkey, l_partkey, s, s * 100 / sum(s) over (partition by l_suppkey)
+from (select l_suppkey, l_partkey, sum(l_extendedprice) s from lineitem
+      group by l_suppkey, l_partkey) t
+order by l_suppkey, l_partkey limit 100"""
+
+#: the running-total shape over the raw rows (~10,000 partitions), every
+#: window output folded into a small result
+_W2_OVER = "over (partition by l_suppkey order by l_shipdate)"
+W2 = f"""
+select count(*), sum(rn), sum(rk), sum(rq), max(c)
+from (select row_number() {_W2_OVER} rn, rank() {_W2_OVER} rk,
+             sum(l_quantity) {_W2_OVER} rq,
+             count(l_orderkey) {_W2_OVER} c
+      from lineitem) t"""
+
+#: Q67's shape: a rank over aggregated groups, then a filter on it
+W3 = """
+select * from (
+  select l_returnflag, l_suppkey,
+         sum(l_extendedprice * (1 - l_discount)) rev,
+         rank() over (partition by l_returnflag
+                      order by sum(l_extendedprice * (1 - l_discount)) desc)
+           rk
+  from lineitem group by l_returnflag, l_suppkey) t
+where rk <= 100 order by l_returnflag, rk, l_suppkey"""
+
+#: few huge partitions (two string keys), a DESC decimal order key with
+#: peers, and a DOUBLE argument: the float segmented scan at scale
+_W4_OVER = ("over (partition by l_returnflag, l_linestatus "
+            "order by l_extendedprice desc)")
+W4 = f"""
+select l_returnflag, l_linestatus, count(*), sum(dr), sum(pr), sum(cd),
+       sum(av), min(mi), max(ma), sum(se)
+from (select l_returnflag, l_linestatus, dense_rank() {_W4_OVER} dr,
+             percent_rank() {_W4_OVER} pr, cume_dist() {_W4_OVER} cd,
+             avg(l_discount) {_W4_OVER} av, min(l_shipdate) {_W4_OVER} mi,
+             max(l_quantity) {_W4_OVER} ma,
+             sum(l_extendedprice * 1e0) {_W4_OVER} se
+      from lineitem) t
+group by l_returnflag, l_linestatus order by 1, 2"""
+
+#: 1.5M partitions of ~4 rows: K10's inputs for the kernel check (its
+#: rows are not compared with the host engine)
+_WO_OVER = "over (partition by l_orderkey order by l_shipdate)"
+W_ORDERS = f"""
+select count(*), sum(rn), sum(rk), sum(s)
+from (select row_number() {_WO_OVER} rn, rank() {_WO_OVER} rk,
+             sum(l_quantity) {_WO_OVER} s from lineitem) t"""
+
+WINDOW_QUERIES = (("w1", W1), ("w2", W2), ("w3", W3), ("w4", W4))
 
 
 class SmokeFailure(Exception):
@@ -329,6 +402,7 @@ def phase_build():
 
 
 def phase_sql_setup(args, captured, joins):
+    import numpy as np
     import torch
     from tidb_tpu_torch import carry
     from tidb_tpu_torch.executor import device_exec, device_join
@@ -346,7 +420,9 @@ def phase_sql_setup(args, captured, joins):
     carry.install_tpch(s.execute, dom, "tpch", tables)
     log(f"[sql] installed and analyzed in {time.perf_counter() - t0:.1f}s")
     keys = {"l_orderkey": tables["lineitem"][0]["l_orderkey"],
-            "o_orderkey": tables["orders"][0]["o_orderkey"]}
+            "o_orderkey": tables["orders"][0]["o_orderkey"],
+            # W2's partition sizes, for its check
+            "supp_counts": np.bincount(tables["lineitem"][0]["l_suppkey"])}
     del tables
     s.execute("set @@tidb_executor_engine = 'tpu'")
 
@@ -1011,6 +1087,356 @@ def run_counted(s, name, sql, counters, need, n_rows, index_builds):
     return res, moved
 
 
+# -- window functions: K2 -> K4 -> K10 ----------------------------------------
+
+class WindowCapture:
+    """While installed, wraps K2's ``expr_vm.run``, K4's
+    ``sort_topk.window_order`` and K10's ``window_scan.run`` and keeps the
+    last device window's inputs of the three and K10's outputs.  The
+    window's K2 program is the last one run before its K4 whose outputs
+    hold the window's keys."""
+
+    def __init__(self):
+        self.last = None
+
+    def __enter__(self):
+        from tidb_tpu_torch.ops.kernels import expr_vm, sort_topk, window_scan
+        self.fns = (expr_vm.run, sort_topk.window_order, window_scan.run)
+        vm_fn, order_fn, scan_fn = self.fns
+        seen = {}
+
+        def vm(prog, inputs, *rest):
+            out = vm_fn(prog, inputs, *rest)
+            seen["vm"] = dict(prog=prog, inputs=inputs, vm_outs=out[1])
+            return out
+
+        def order(cols, nulls, descs, *rest):
+            seen["order"] = dict(cols=cols, descs=descs, vm=seen.get("vm"))
+            return order_fn(cols, nulls, descs, *rest)
+
+        def scan(nb, n_live, idx, part_keys, order_keys, args, funcs, dev):
+            outs = scan_fn(nb, n_live, idx, part_keys, order_keys, args,
+                           funcs, dev)
+            keys = list(part_keys) + list(order_keys)
+            o = seen.pop("order", None)
+            if (o is None or len(o["cols"]) != len(keys)
+                    or any(c is not k[0] for c, k in zip(o["cols"], keys))
+                    or o["vm"] is None
+                    or not any(d is keys[0][0]
+                               for d, _n in o["vm"]["vm_outs"])):
+                fail("window capture: K10's keys are not K4's and K2's "
+                     "outputs of the same window")
+            self.last = dict(prog=o["vm"]["prog"], inputs=o["vm"]["inputs"],
+                             nb=nb, n_live=n_live, keys=keys,
+                             descs=o["descs"], idx=idx,
+                             n_part=len(part_keys), args=list(args),
+                             funcs=funcs, outs=outs)
+            return outs
+
+        expr_vm.run, sort_topk.window_order, window_scan.run = vm, order, scan
+        return self
+
+    def __exit__(self, *exc):
+        from tidb_tpu_torch.ops.kernels import expr_vm, sort_topk, window_scan
+        expr_vm.run, sort_topk.window_order, window_scan.run = self.fns
+
+
+def window_counters():
+    from tidb_tpu_torch.ops.kernels import window_scan
+    return {**stream_counters(), "window_scan": window_scan.LAUNCHES}
+
+
+#: kernels every window query launches: K2 (keys and arguments), K4 (the
+#: window's order), K10
+WINDOW_NEED = ["expr_vm", "sort_topk", "window_scan"]
+
+
+def k10_call(ev, plain=False):
+    from tidb_tpu_torch.ops.kernels import window_scan
+    n_part = ev["n_part"]
+    argv = (ev["nb"], ev["n_live"], ev["idx"], ev["keys"][:n_part],
+            ev["keys"][n_part:], ev["args"], ev["funcs"],
+            ev["keys"][0][0].device)
+    return (window_scan.window_plain if plain else window_scan.run)(*argv)
+
+
+def compare_window(out_k, out_p, funcs, what):
+    """K10 against its plain version: NULL flags exact everywhere; integer
+    outputs exact and float outputs within rtol 1e-9 / atol 1e-12 where
+    not NULL (float sums add in another order).  Returns the max abs
+    error of the float outputs and the largest |value| among them."""
+    import torch
+    err, mag = 0.0, 0.0
+    for (name, _a), (dk, nk), (dp, np_) in zip(funcs, out_k, out_p):
+        if not torch.equal(nk, np_):
+            fail(f"K10 {what}: NULL flags of {name} differ")
+        a, b = dk[~nk], dp[~np_]
+        if a.is_floating_point():
+            if a.numel():
+                d = (a - b).abs()
+                err = max(err, float(d.max()))
+                mag = max(mag, float(b.abs().max()))
+                if not bool((d <= 1e-12 + 1e-9 * b.abs()).all()):
+                    fail(f"K10 {what}: {name} outside rtol 1e-9 (max abs "
+                         f"{float(d.max())})")
+        elif not torch.equal(a, b):
+            fail(f"K10 {what}: {name} differs from the plain version")
+    return err, mag
+
+
+def window_bound_ms(ev, outs):
+    """Least time of K10 on one window: the sorted order read once; each
+    array K10 reads read once through it — a key's data and NULL flags,
+    an argument's NULL flags, and its data only where a SUM, MIN or MAX
+    reads it (COUNT reads the flags alone) — a random 32-byte sector per
+    row for a data array and its own size for a NULL-flag array (one
+    byte a row: 8 MiB at 2^23 rows, held in the 50 MB L2); every output
+    written once.  Without an order (no keys) the reads are
+    sequential."""
+    nb, idx = ev["nb"], ev["idx"]
+    data = {k[0].data_ptr(): k[0] for k in ev["keys"]}
+    flags = {k[1].data_ptr(): k[1] for k in ev["keys"]}
+    for name, a in ev["funcs"]:
+        if a is None:
+            continue
+        d, nl = ev["args"][a]
+        flags[nl.data_ptr()] = nl
+        if name in ("sum", "min", "max"):
+            data[d.data_ptr()] = d
+    moved = (8 * nb if idx is not None else 0)
+    moved += sum(nb * (SECTOR if idx is not None else d.element_size())
+                 for d in data.values()) + nb * len(flags)
+    moved += nbytes([t for pair in outs for t in pair])
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def check_window_kernel(name, ev):
+    """K10 against its plain version on one window's full inputs, timed
+    beside its bound and one torch.cumsum over the same rows."""
+    import torch
+    out_k, out_p = k10_call(ev), k10_call(ev, plain=True)
+    torch.cuda.synchronize()
+    err, mag = compare_window(out_k, out_p, ev["funcs"], name)
+    ms = cuda_ms(lambda: k10_call(ev))
+    plain_ms = cuda_ms(lambda: k10_call(ev, plain=True))
+    bound = window_bound_ms(ev, out_k)
+    z = ev["keys"][0][0]
+    scan_ms = cuda_ms(lambda: torch.cumsum(z, 0))
+    funcs = ", ".join(f for f, _a in ev["funcs"])
+    log(f"[K10] {name}: nb={ev['nb']}, n_live={ev['n_live']}, "
+        f"{ev['n_part']} partition + {len(ev['keys']) - ev['n_part']} "
+        f"order keys, {len(ev['args'])} arguments, functions [{funcs}]: "
+        f"max abs err {err!r} (largest |float output| {mag!r}); "
+        f"{ms:.3f} ms (plain {plain_ms:.3f} ms, "
+        f"bound {bound:.4f} ms; one torch.cumsum over the rows "
+        f"{scan_ms:.3f} ms)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+
+
+def window_stage_ms(ev):
+    """K2, K4 and K10 ms (CUDA events) and the one device -> host copy's
+    ms of one captured window."""
+    from tidb_tpu_torch.executor import device_exec
+    from tidb_tpu_torch.ops.kernels import expr_vm, sort_topk
+    dev = ev["keys"][0][0].device
+    k2 = cuda_ms(lambda: expr_vm.run(ev["prog"], ev["inputs"], ev["nb"],
+                                     ev["n_live"], dev))
+    k4 = cuda_ms(lambda: sort_topk.window_order(
+        [k[0] for k in ev["keys"]], [k[1] for k in ev["keys"]],
+        ev["descs"], ev["nb"], ev["n_live"]))
+    k10 = cuda_ms(lambda: k10_call(ev))
+    n = ev["n_live"]
+    outs = tuple((d[:n], nl[:n]) for d, nl in ev["outs"])
+    device_exec._fetch(outs)
+    t0 = time.perf_counter()
+    device_exec._fetch(outs)
+    d2h = (time.perf_counter() - t0) * 1e3
+    return k2, k4, k10, d2h
+
+
+def check_window_order(ev):
+    """K4's window order on W2 (two int64 keys without NULLs on the live
+    rows) against torch.sort(stable=True) of the one int64 that packs
+    them, padding rows last."""
+    import torch
+    nb, n_live = ev["nb"], ev["n_live"]
+    (supp, sn), (ship, shn) = ev["keys"]
+    if bool(sn[:n_live].any()) or bool(shn[:n_live].any()):
+        fail("K4 window order: W2's keys hold NULLs")
+    s_live, h_live = supp[:n_live], ship[:n_live]
+    smin, hmin = int(s_live.min()), int(h_live.min())
+    span = int(h_live.max()) - hmin + 1
+    live = torch.arange(nb, device=supp.device) < n_live
+    packed = torch.where(live, (supp - smin) * span + (ship - hmin),
+                         torch.full((), 1 << 62, device=supp.device))
+    want = torch.sort(packed, stable=True).indices
+    if not torch.equal(ev["idx"], want):
+        fail("K4 window order differs from torch.sort of the packed key")
+    lib_ms = cuda_ms(lambda: torch.sort(packed, stable=True))
+    return lib_ms
+
+
+def check_w2(res, n_rows, supp_counts, what):
+    """W2's count, sum of row numbers and largest running count equal
+    what the generated partition sizes (rows per l_suppkey) give."""
+    row = res.rows[0]
+    want = (str(n_rows), str(int((supp_counts * (supp_counts + 1)
+                                  // 2).sum())), str(int(supp_counts.max())))
+    if (row[0], row[1], row[4]) != want:
+        fail(f"{what}: count, sum(row_number), max(count) {row} != {want} "
+             "from the generated partition sizes")
+
+
+def window_split(st, stages, dev_ms):
+    """Where one window query's time went: the window operator's host
+    time (``device_exec.LAST_WINDOW_STATS``: uploads, planning, kernels,
+    the copy back, assembly), its kernels' and copy's own times (CUDA
+    events and host clock, timed apart), and the rest of the query (the
+    host operators around the window)."""
+    k2, k4, k10, d2h = stages
+    w = st["window_s"] * 1e3
+    return (f"window of {st['n']} rows, bucket {st['nb']}: operator "
+            f"{w:.3f} ms, of it K2 {k2:.3f} ms, K4 {k4:.3f} ms, K10 "
+            f"{k10:.3f} ms, D2H {d2h:.3f} ms, host assembly "
+            f"{st['assemble_s'] * 1e3:.3f} ms; the rest of the query "
+            f"{dev_ms - w:.3f} ms")
+
+
+def phase_window(s, n_rows, supp_counts, report):
+    """``[window]``: W1-W4 on the SF1 tables, the kernels against their
+    plain versions on the full captured inputs, the main-path run with
+    its launch counts, and the rows against the host engine."""
+    import torch
+    from tidb_tpu_torch.executor import device_exec
+    from tidb_tpu_torch.ops.kernels import sort_topk
+    s.execute("use tpch")
+    s.execute("set @@tidb_executor_engine = 'tpu'")
+    events = {}
+    for name, sql in WINDOW_QUERIES + (("w_orders", W_ORDERS),):
+        with WindowCapture() as cap:
+            t0 = time.perf_counter()
+            s.execute(sql)
+            torch.cuda.synchronize()
+        if cap.last is None:
+            fail(f"window {name}: the device window never ran")
+        events[name] = cap.last
+        log(f"[window] warm-up {name}: "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    # the kernels against their plain versions, on the card
+    row = None
+    for name in ("w2", "w4", "w_orders"):
+        r = check_window_kernel(f"{name} (sf1)", events[name])
+        if name == "w2":
+            row = dict(r)
+        row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+    report["window_scan"].update(row)
+    lib_ms = check_window_order(events["w2"])
+    for name in ("w2", "w4"):
+        ev = events[name]
+        keys = ev["keys"]
+        k4 = cuda_ms(lambda: sort_topk.window_order(
+            [k[0] for k in keys], [k[1] for k in keys], ev["descs"],
+            ev["nb"], ev["n_live"]))
+        bound = (nbytes([t for k in keys for t in k]) + 8 * ev["nb"]) \
+            / HBM_BYTES_PER_S * 1e3
+        extra = (f"; equal to torch.sort(stable=True) of the packed int64 "
+                 f"key, {lib_ms:.3f} ms" if name == "w2" else "")
+        log(f"[K4] window order {name}: nb={ev['nb']}, {len(keys)} keys: "
+            f"{k4:.3f} ms (bound {bound:.4f} ms){extra}")
+        if name == "w2":
+            report["sort_topk"].update(window_order_ms=k4,
+                                       window_order_bound_ms=bound,
+                                       window_order_library_ms=lib_ms)
+    stages = {name: window_stage_ms(events[name])
+              for name, _sql in WINDOW_QUERIES}
+    events.clear()
+    torch.cuda.empty_cache()
+
+    # the main path: counters at 0, each query once more (steady state)
+    counters = window_counters()
+    for c in counters.values():
+        c[0] = 0
+    dev_res, dev_ms, assemble = {}, {}, {}
+    for name, sql in WINDOW_QUERIES:
+        before = {k: c[0] for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_res[name] = s.execute(sql)[-1]
+        torch.cuda.synchronize()
+        dev_ms[name] = (time.perf_counter() - t0) * 1e3
+        assemble[name] = dict(device_exec.LAST_WINDOW_STATS)
+        moved = {k: c[0] - before[k] for k, c in counters.items()}
+        for k in WINDOW_NEED:
+            if moved[k] <= 0:
+                fail(f"window {name}: kernel {k} was not launched "
+                     "(degraded to the host engine?)")
+    report["window_scan"]["launches"] = counters["window_scan"][0]
+    log(f"[window] launches {dict((k, c[0]) for k, c in counters.items())}")
+    for name, sql in WINDOW_QUERIES:
+        res = s.execute("explain analyze " + sql)[-1]
+        lines = [r for r in res.rows if "Window" in str(r[0])]
+        if not lines or not all(any("engine:tpu" in str(c) for c in r)
+                                for r in lines):
+            for r in res.rows:
+                log(f"    {r}")
+            fail(f"window {name}: EXPLAIN ANALYZE shows a Window without "
+                 "engine:tpu")
+    check_w2(dev_res["w2"], n_rows, supp_counts, "window w2")
+    s.execute("set @@tidb_executor_engine = 'host'")
+    for name, sql in WINDOW_QUERIES:
+        t0 = time.perf_counter()
+        host = s.execute(sql)[-1]
+        host_s = time.perf_counter() - t0
+        if not host.rows or not rows_equal(dev_res[name], host):
+            fail(f"window {name}: device rows differ from the host "
+                 f"engine's:\ndevice {dev_res[name].rows[:5]}\n"
+                 f"host   {host.rows[:5]}")
+        log(f"[window] {name}: {len(host.rows)} rows equal the host "
+            f"engine's, engine:tpu; device {dev_ms[name]:.3f} ms "
+            f"({window_split(assemble[name], stages[name], dev_ms[name])}"
+            f"); host engine {host_s:.3f} s; first {host.rows[:1]}")
+
+
+def window_sf10(s, n_rows, supp_counts):
+    """W2 over the SF10 lineitem on the device (the host engine's window
+    over 60M rows does not fit the time budget): K10 against its plain
+    version on its inputs, the result against the generated partition
+    sizes, and its time."""
+    import torch
+    from tidb_tpu_torch.executor import device_exec
+    s.execute("set @@tidb_executor_engine = 'tpu'")
+    with WindowCapture() as cap:
+        t0 = time.perf_counter()
+        s.execute(W2)
+        torch.cuda.synchronize()
+    if cap.last is None:
+        fail("sf10 window w2: the device window never ran")
+    log(f"[window] sf10 warm-up w2: {time.perf_counter() - t0:.3f} s")
+    ev = cap.last
+    check_window_kernel("w2 (sf10)", ev)
+    k2, k4, k10, d2h = window_stage_ms(ev)
+    del ev, cap
+    torch.cuda.empty_cache()
+    counters = window_counters()
+    for c in counters.values():
+        c[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = s.execute(W2)[-1]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for k in WINDOW_NEED:
+        if counters[k][0] <= 0:
+            fail(f"sf10 window w2: kernel {k} was not launched")
+    check_w2(res, n_rows, supp_counts, "sf10 window w2")
+    split = window_split(device_exec.LAST_WINDOW_STATS, (k2, k4, k10, d2h),
+                         dt * 1e3)
+    log(f"[window] sf10 w2: {dt * 1e3:.3f} ms on the device engine "
+        f"({split}); count, sum(row_number) and max(count) equal the "
+        "generated partition sizes; launches "
+        f"{dict((k, c[0]) for k, c in counters.items())}")
+
+
 # -- the out-of-core path: paged tables, streamed and paged queries ----------
 
 #: the queries that stream or page (the join without an aggregate has no
@@ -1269,6 +1695,7 @@ def check_merge(name, call):
 
 
 def phase_sf10(args, dom, rate, report):
+    import numpy as np
     import torch
     from tidb_tpu_torch import carry
     from tidb_tpu_torch.session import new_session
@@ -1280,6 +1707,7 @@ def phase_sf10(args, dom, rate, report):
     s = new_session(dom)
     t0 = time.perf_counter()
     carry.install_tpch(s.execute, dom, "tpch10", tables, analyze=False)
+    supp_counts = np.bincount(tables["lineitem"][0]["l_suppkey"])
     del tables
     log(f"[sf10] installed as bulk tables in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
@@ -1365,6 +1793,7 @@ def phase_sf10(args, dom, rate, report):
         log(f"[sf10] {name}: {len(host.rows)} rows equal the host "
             f"engine's (host {dt:.3f} s, streamed/paged "
             f"{times[name]:.4f} s)")
+    window_sf10(s, n, supp_counts)
 
 
 def main(argv=None) -> int:
@@ -1435,6 +1864,13 @@ def main(argv=None) -> int:
                                    "merge_states.cu",
                          "replaces": "tidb_tpu/executor/device_exec.py:1323",
                          "bound_by": "bytes", "library_ms": None},
+        # no one PyTorch call computes a segmented window (one
+        # torch.cumsum over the rows is logged beside it)
+        "window_scan": {"name": "K10 window_scan", "route": "cuda",
+                        "source": "tidb_tpu_torch/ops/kernels/csrc/"
+                                  "window_scan.cu",
+                        "replaces": "tidb_tpu/executor/device_exec.py:1529",
+                        "bound_by": "bytes", "library_ms": None},
     }
     t_all = time.perf_counter()
     t_phase = [t_all]
@@ -1451,12 +1887,15 @@ def main(argv=None) -> int:
         phase_done("sql set-up")
         phase_kernels(args, captured, report)
         phase_join_kernels(args, joins, keys, report)
+        supp_counts = keys["supp_counts"]
         captured.clear()
         joins.clear()
         del keys
         phase_done("kernels")
         host_res = phase_main_path(dom, s, n_rows, report)
         phase_done("main path")
+        phase_window(s, n_rows, supp_counts, report)
+        phase_done("window")
         rate = pinned_h2d_rate()
         log(f"[h2d] pinned host -> device copy of 256 MiB: "
             f"{rate / 1e9:.3f} GB/s")
@@ -1479,8 +1918,12 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in report.values()]}))
+    # K4's row also carries its time as the window's order (W2, 2^23)
+    extra = ("window_order_ms", "window_order_bound_ms",
+             "window_order_library_ms")
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
+        for r in report.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

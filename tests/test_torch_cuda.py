@@ -8,10 +8,11 @@ with nvcc on first use) and skip elsewhere:
 (``--noconftest`` because tests/conftest.py imports JAX for the
 reference's tests; the card's machine need not have it.)
 
-Tolerances: the expression VM and the top-k sort must match exactly; the
-aggregate's and the partial-state merge's integers, keys and NULL flags
-exactly, their float sums within rtol 1e-9 / atol 1e-12 (atomics add in
-a different order every run).
+Tolerances: the expression VM and the top-k sort (and the window's
+order) must match exactly; the aggregate's, the partial-state merge's
+and the window scan's integers, keys and NULL flags exactly, their float
+results within rtol 1e-9 / atol 1e-12 (atomics and scans add in a
+different order).
 """
 
 import numpy as np
@@ -384,3 +385,77 @@ def test_merge_states_of_empty_parts(dev, pack):
                                    else int(parts[1][4]))
         for a, b in zip(k[0] + k[1] + k[3], p[0] + p[1] + p[3]):
             assert torch.equal(a[:ng], b[:ng])
+
+
+# -- the window kernel (K10 window_scan) and K4's window order --------------
+
+def _window_case(dev, seed, nb, n_live):
+    """Two partition keys (int, double with -0.0 / 0.0), two order keys
+    (int, double; ties), NULLs everywhere, three argument columns (huge
+    ints that wrap, doubles, all NULL), sorted by K4's window order."""
+    rng = np.random.default_rng(seed)
+
+    def col(vals, p_null):
+        return (_up(vals, dev), _up(rng.random(nb) < p_null, dev))
+
+    part = [col(rng.integers(0, 40, nb), 0.05),
+            col(rng.choice([-0.0, 0.0, 1.5], nb), 0.05)]
+    order = [col(rng.integers(-3, 4, nb), 0.1),
+             col(rng.choice([-2.5, 0.0, 1.0, 7.25], nb), 0.1)]
+    args = [col(rng.integers(-2**62, 2**62, nb), 0.2),
+            col(rng.standard_normal(nb) * 1e6, 0.2),
+            col(np.zeros(nb, np.int64), 1.0)]
+    keys = part + order
+    descs = [False, False, True, False]
+    idx = sort_topk.window_order([k[0] for k in keys],
+                                 [k[1] for k in keys], descs, nb, n_live)
+    return part, order, args, idx
+
+
+@pytest.mark.parametrize("ordered", [True, False], ids=["order", "no_order"])
+def test_window_scan_matches_plain(dev, ordered):
+    """K10 against its plain version: NULL flags and integers exact,
+    doubles within rtol 1e-9 / atol 1e-12 (float sums scan in another
+    order)."""
+    from tidb_tpu_torch.ops.kernels import window_scan
+    nb, n_live = 300_007, 287_001
+    part, order, args, idx = _window_case(dev, 11, nb, n_live)
+    if not ordered:
+        order = []
+    funcs = [("row_number", None), ("rank", None), ("dense_rank", None),
+             ("percent_rank", None), ("cume_dist", None), ("count", 0),
+             ("sum", 0), ("min", 0), ("max", 0), ("sum", 1), ("min", 1),
+             ("max", 1), ("count", 2), ("sum", 2), ("max", 2)]
+    k = window_scan.run(nb, n_live, idx, part, order, args, funcs, dev)
+    p = window_scan.window_plain(nb, n_live, idx, part, order, args, funcs,
+                                 dev)
+    for (name, _a), (kd, kn), (pd, pn) in zip(funcs, k, p):
+        assert torch.equal(kn, pn), name
+        a, b = kd[~kn], pd[~pn]
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
+        else:
+            assert torch.equal(a, b), name
+    # input order (no sort): a window without keys
+    k = window_scan.run(nb, n_live, None, [], [], args, funcs[:3], dev)
+    p = window_scan.window_plain(nb, n_live, None, [], [], args, funcs[:3],
+                                 dev)
+    for (kd, kn), (pd, pn) in zip(k, p):
+        assert torch.equal(kd, pd) and torch.equal(kn, pn)
+
+
+def test_window_order_matches_torch_sort(dev):
+    """K4's window order over two int64 keys without NULLs equals
+    torch.sort(stable=True) of the one int64 that packs them, with the
+    rows past n_live last (and among themselves in key order, as the
+    reference's lexsort has them)."""
+    rng = np.random.default_rng(12)
+    nb, n_live = 1 << 18, (1 << 18) - 999
+    a = _up(rng.integers(0, 1000, nb), dev)
+    b = _up(rng.integers(0, 3000, nb), dev)
+    z = _up(np.zeros(nb, bool), dev)
+    got = sort_topk.window_order([a, b], [z, z], [False, False], nb, n_live)
+    live = torch.arange(nb, device=dev) < n_live
+    packed = a * 3000 + b + torch.where(
+        live, 0, torch.full((), 1 << 62, device=dev))
+    assert torch.equal(got, torch.sort(packed, stable=True).indices)

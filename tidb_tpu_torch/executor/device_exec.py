@@ -10,11 +10,12 @@ groups selects its rows on the device (ops/kernels/sort_topk.py).
 
 The whole-table scan-aggregate path, the streamed scan-aggregate
 (``device_agg_streaming``: pages through ops/stream.py, per-page K2 + K1,
-partial states folded by the merge kernel ops/kernels/merge_states.py)
-and the standalone join match (``device_join_keys``: K4 + K5a + K5b
-through ``ops/device.py device_join_match``) are ported.  Window
-functions raise DeviceUnsupported until their ROADMAP queue-1 item ports
-them, so those queries run on the host engine.
+partial states folded by the merge kernel ops/kernels/merge_states.py),
+the standalone join match (``device_join_keys``: K4 + K5a + K5b
+through ``ops/device.py device_join_match``) and window functions
+(``device_window``: K2 for the keys and arguments, K4 for the window's
+order, K10 ops/kernels/window_scan.py for the flags, scans and scatter)
+are ported.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from ..expression import phys_kind, K_DEC, K_FLOAT, K_STR, K_DATE
 from ..expression.core import Column as ExprColumn
 from ..ops import device as dev, stream
 from ..ops.device import DeviceUnsupported
-from ..ops.kernels import expr_vm, merge_states, sort_topk
+from ..ops.kernels import expr_vm, merge_states, sort_topk, window_scan
 from ..sqltypes import POW10
 from ..utils.chunk import Chunk, Column, np_dtype_for
 
@@ -1296,11 +1297,184 @@ def merge_partial_states(state, parts, merge_cap, n_keys, nvals, merge_ops,
         merge_cap = dev.next_pow2(ng)
 
 
+#: window functions the device kernel computes (reference:
+#: executor/window.go; unistore runs window fragments storage-side)
+_WIN_RANKS = {"row_number", "rank", "dense_rank", "percent_rank",
+              "cume_dist"}
+_WIN_AGGS = {"sum", "count", "avg", "min", "max"}
+
+#: host seconds of the last device window: ``window_s`` (the whole call:
+#: uploads, planning, kernels, fetch and assembly), ``dispatch_s`` (K2,
+#: K4 and K10 enqueued), ``fetch_s`` (the one device → host copy, which
+#: waits for the kernels), ``assemble_s`` (host assembly), with ``n`` and
+#: ``nb``
+LAST_WINDOW_STATS: dict = {}
+
+
 def device_window(p, chunk: Chunk, ctx=None) -> Chunk:
-    """Window functions on the device (reference K10) are not in this
-    slice."""
-    raise DeviceUnsupported("not yet ported: ROADMAP queue 1 item 4 "
-                            "(device window functions)")
+    """Window functions as one device program: K2 evaluates the partition
+    keys, order keys and arguments in one expression-VM pass, K4 sorts
+    the rows (live first, then partition, then order keys, stable), K10
+    computes every function with segmented scans and scatters them back
+    to input order — no per-partition host loop (the host path iterates
+    partitions in Python; reference executor/window.go processes them
+    serially too).  Default frames only: with ORDER BY, RANGE UNBOUNDED
+    PRECEDING..CURRENT ROW (peer-aware); without, the whole partition.
+    Raises DeviceUnsupported outside that language (ntile/lead/lag,
+    explicit frames, distinct args) and past K4's key limit — the host
+    executor covers the rest."""
+    t_call = _time.perf_counter()
+    n = chunk.num_rows
+    if n == 0:
+        raise DeviceUnsupported("empty window input")
+    for f in p.funcs:
+        if f.frame is not None:
+            raise DeviceUnsupported("explicit window frame")
+        if f.name in _WIN_RANKS:
+            continue
+        if f.name not in _WIN_AGGS or len(f.args) != 1:
+            raise DeviceUnsupported(f"window func {f.name}")
+        if phys_kind(f.args[0].ftype) == K_STR and f.name not in ("count",):
+            raise DeviceUnsupported("string window aggregate")
+    n_keys = len(p.partition_exprs) + len(p.order_by)
+    if n_keys > sort_topk.MAX_KEYS:
+        raise DeviceUnsupported(f"{n_keys} window keys (the device sorts "
+                                f"at most {sort_topk.MAX_KEYS})")
+
+    used = set()
+    for e in p.partition_exprs:
+        e.columns_used(used)
+    for e, _d in p.order_by:
+        e.columns_used(used)
+    for f in p.funcs:
+        for a in f.args:
+            a.columns_used(used)
+    # bucketed upload: padding rows sort behind every live row (validity is
+    # the most-major sort key) and form their own trailing partition, so no
+    # rank/aggregate of a real partition ever sees them
+    nb = dev.bucket_rows(n, dev.shape_buckets(ctx))
+    dcols = {}
+    env = {}
+    for idx_ in used:
+        dc = dev.to_device_col(chunk.columns[idx_], bucket=nb)
+        dcols[idx_] = dc
+        env[idx_] = (dc.data, dc.nulls)
+
+    part_fns = [dev.compile_expr(e, dcols) for e in p.partition_exprs]
+    order_fns = [(dev.compile_expr(e, dcols), d) for e, d in p.order_by]
+    agg_fns = [dev.compile_expr(f.args[0], dcols)
+               if f.name in _WIN_AGGS else None for f in p.funcs]
+    has_order = bool(p.order_by)
+    names = tuple(f.name for f in p.funcs)
+    kinds = tuple(phys_kind(f.args[0].ftype) if f.name in _WIN_AGGS else None
+                  for f in p.funcs)
+
+    def build():
+        t0 = _time.perf_counter()
+        # one VM program for every key and argument; an argument computes
+        # in its result's kind (float sums scan as doubles)
+        vals = [(node, "raw") for node in part_fns]
+        vals += [(node, "raw") for node, _d in order_fns]
+        funcs, arg_nodes = [], []
+        for name, node, k in zip(names, agg_fns, kinds):
+            if node is None:
+                funcs.append((name, None))
+                continue
+            node = expr_vm.to_f(node) if k == K_FLOAT else expr_vm.to_i(node)
+            a = len(arg_nodes)
+            arg_nodes.append(node)
+            if name == "avg":  # host assembly divides sum by count
+                funcs += [("sum", a), ("count", a)]
+            else:
+                funcs.append((name, a))
+        vals += [(node, "raw") for node in arg_nodes]
+        prog = expr_vm.Program.build([], [], vals)
+        np_, no = len(part_fns), len(order_fns)
+        descs = [False] * np_ + [bool(d) for _f, d in order_fns]
+
+        def run(env, n_live):
+            d = (next(iter(env.values()))[0].device if env
+                 else dev.device())
+            cols = []
+            if prog.val_slots:
+                _mask, outs = expr_vm.run(
+                    prog, [env[c] for c in prog.in_cols], nb, n_live, d)
+                cols = [outs[s] for s in prog.val_slots]
+            keys = cols[:np_ + no]
+            idx = None
+            if keys:
+                idx = sort_topk.window_order(
+                    [k[0] for k in keys], [k[1] for k in keys], descs, nb,
+                    n_live)
+            return window_scan.run(nb, n_live, idx, keys[:np_],
+                                   keys[np_:], cols[np_ + no:], funcs, d)
+
+        return _timed_jit(run, t0)
+
+    # dictionary CONTENT is the load-bearing key component: compiled
+    # str-expr LUTs bake the dictionary's codes, exactly like the agg
+    # pipeline cache (_agg_sig / _pipe_cache_put); the shape key is the
+    # BUCKET, so a within-bucket delta re-dispatches the compiled program
+    dict_refs = tuple(dc.dictionary for dc in dcols.values()
+                      if dc.dictionary is not None)
+    sig = (nb, names, kinds, has_order,
+           tuple(_expr_sig(e) for e in p.partition_exprs),
+           tuple((_expr_sig(e), d) for e, d in p.order_by),
+           tuple(_expr_sig(f.args[0]) if f.name in _WIN_AGGS else None
+                 for f in p.funcs),
+           tuple(f"{idx_}:{_dc_sig(dc)}" for idx_, dc in sorted(dcols.items())
+                 if dc.dictionary is not None))
+    fn = acquire_pipeline(("win",) + sig, build, dict_refs, ctx=ctx,
+                          args=(env, n), shape="window", sig=sig)
+    t0 = _time.perf_counter()
+    res = fn(env, n)
+    t1 = _time.perf_counter()
+    # outputs are padded to the bucket; positions past the live rows belong
+    # to the trailing padding partition — slice them away
+    outs = _fetch(tuple((d[:n], nl[:n]) for d, nl in res))
+    t2 = _time.perf_counter()
+    out_cols = list(chunk.columns)
+    oi = 0
+    for f in p.funcs:
+        ft = f.ftype
+        if f.name == "avg":
+            s = np.asarray(outs[oi][0])
+            s_null = np.asarray(outs[oi][1])
+            c = np.asarray(outs[oi + 1][0])
+            oi += 2
+            arg = f.args[0]
+            if phys_kind(ft) == K_FLOAT:
+                vals = s / np.maximum(c, 1)
+                if phys_kind(arg.ftype) == K_DEC:
+                    # decimal args evaluate as scaled ints — unscale for
+                    # the double-typed window AVG
+                    vals = vals / POW10[arg.ftype.scale]
+                out_cols.append(Column(ft, vals, s_null))
+            else:
+                s_arg = (arg.ftype.scale
+                         if phys_kind(arg.ftype) == K_DEC else 0)
+                shift = POW10[ft.scale - s_arg]
+                num = s.astype(object) * shift
+                den = np.maximum(c, 1).astype(object)
+                sign = np.where(num < 0, -1, 1)
+                q = (2 * np.abs(num) + den) // (2 * den)
+                vals = np.array([int(x) for x in sign * q], dtype=np.int64)
+                out_cols.append(Column(ft, vals, s_null))
+            continue
+        vals, nulls = outs[oi]
+        oi += 1
+        vals = np.asarray(vals)
+        nulls = np.asarray(nulls)
+        dt = np_dtype_for(ft)
+        if dt is not object and vals.dtype != dt:
+            vals = vals.astype(dt)
+        out_cols.append(Column(ft, vals, nulls))
+    t3 = _time.perf_counter()
+    LAST_WINDOW_STATS.clear()
+    LAST_WINDOW_STATS.update(n=n, nb=nb, window_s=t3 - t_call,
+                             dispatch_s=t1 - t0, fetch_s=t2 - t1,
+                             assemble_s=t3 - t2)
+    return Chunk(out_cols)
 
 
 def device_join_keys(lkeys, rkeys):

@@ -12,7 +12,11 @@ PyTorch version:
                 totals (a hand-written scan);
 ``merge_states`` K8/K9 — the fold of partial aggregate states (the
                 streamed aggregate's and the paged join's): a gather
-                of each state's live slots, then K1's kernels.
+                of each state's live slots, then K1's kernels;
+``window_scan`` K10 — window functions after the window's sort (K4):
+                change flags, segmented scans of the partition and
+                peer-group bounds and running aggregates, and the
+                scatter back to input order.
 
 Sources live in ``csrc/``; ``build.py`` compiles them with nvcc for
 sm_90a into one shared library at first use.  A wrapper launches its

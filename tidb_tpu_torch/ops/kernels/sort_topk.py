@@ -1,5 +1,5 @@
 """K4: top-k of group slots by a multi-key order, and the key order of the
-hash aggregate's groups.
+hash aggregate's groups and of a window's rows.
 
 The order (``tidb_tpu/executor/device_exec.py:711 _topk_indices``): slots
 at or past the live count sort behind every live slot; then each key in
@@ -122,3 +122,13 @@ def valid_first_order(key, invalid):
     (``ops/device.py:1476``).  Counted in ``LAUNCHES`` on the card."""
     n = key.shape[0]
     return sort_indices([key], [invalid], [False], [False], n, n, n)
+
+
+def window_order(cols, nulls, descs, nb: int, n_live: int):
+    """The window's order over `nb` rows (the reference's lexsort,
+    ``tidb_tpu/executor/device_exec.py:1569``): rows below `n_live`
+    first, then each key — partition keys ascending, then order keys —
+    with NULLs first ascending and last descending, ties by row index.
+    Counted in ``LAUNCHES`` on the card."""
+    return sort_indices(cols, nulls, descs, [not d for d in descs], nb,
+                        n_live, nb)
