@@ -80,7 +80,26 @@ Phases, each fatal on failure:
    256 MiB copy); last W2 over the SF10 lineitem on the device (bucket
    2^26), K10 against its plain version on its inputs, its count, sum of
    row numbers and largest count against the generated partition sizes;
-8. report — the card's name and power limit, a ``kernels`` JSON line,
+8. ``[hybrid]`` — on the same ``tpch10`` tables, ``tidb_device_mem_budget``
+   at 300,000,000 and then 120,000,000 bytes (``bench.py --mem-budget``'s
+   budgets, ``BENCH_SPILL_r01.json``), each from an empty residency
+   ledger: Q5 twice (warm-up, then timed with the launch counters set to
+   0 before), both required to run the hybrid hash join
+   (``executor/hybrid_join.py``); at 300 MB at least one device
+   partition must launch K2, K5a, K1 and the merge, at 120 MB at least
+   one partition must spill and be joined on the host; the rows must
+   equal ``[sf10]``'s resident rows exactly.  Q3 and Q9 once each at
+   both budgets, their path logged (hybrid, paged or resident) and their
+   rows held to ``[sf10]``'s whatever the path.  K5a's sorted probe of a
+   partition index against its plain version on a captured page (exact)
+   and the merge against its plain version on the largest hybrid fold,
+   each timed beside its bound.  One ``[hybrid]`` line per hybrid run:
+   partitions, spilled partitions, spill bytes, rows joined on the host,
+   the host's ``join.partition`` seconds, the device pass's seconds,
+   pages, H2D bytes and copy time, its bound (its bytes at the HBM rate
+   plus at the measured pinned rate), the host pass's seconds and the
+   host wait.  The budget goes back to 0 at the end;
+9. report — the card's name and power limit, a ``kernels`` JSON line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the ``tidb_tpu_torch`` package beside it,
@@ -732,6 +751,29 @@ def expand_bound_ms(cnt, pos0, pvalid, cap, total, out):
     return (moved + (filled + rows_hit) * SECTOR) / HBM_BYTES_PER_S * 1e3
 
 
+def check_probe(ev, what):
+    """K5a on a captured probe call against its plain version (exact),
+    timed beside its bound.  Returns (ms, plain_ms, bound_ms)."""
+    import torch
+    from tidb_tpu_torch.ops.kernels import join_probe
+    kw = dict(layout=ev["layout"], mode=ev["mode"], kind=ev["kind"],
+              bvalid=ev["bvalid"], dense_span=ev["dense_span"])
+    argv = (ev["keys"], ev["knulls"], ev["pvalid"], ev["packs"], ev["a0"],
+            ev["a1"], ev["nv"])
+
+    def run_k():
+        return join_probe.probe(*argv, **kw)
+
+    def run_p():
+        return join_probe.probe_plain(*argv, kw["layout"], kw["mode"],
+                                      kw["kind"], kw["bvalid"], None,
+                                      kw["dense_span"])
+    out_k, out_p = run_k(), run_p()
+    torch.cuda.synchronize()
+    same_outputs(out_k, out_p, what)
+    return cuda_ms(run_k), cuda_ms(run_p), probe_bound_ms(ev, out_k)
+
+
 def phase_join_kernels(args, joins, keys, report):
     import numpy as np
     import torch
@@ -755,25 +797,8 @@ def phase_join_kernels(args, joins, keys, report):
         if not evs:
             fail(f"K5a: {name} ran no {want_layout} probe")
         for ev in evs:
-            kw = dict(layout=ev["layout"], mode=ev["mode"], kind=ev["kind"],
-                      bvalid=ev["bvalid"], dense_span=ev["dense_span"])
-            argv = (ev["keys"], ev["knulls"], ev["pvalid"], ev["packs"],
-                    ev["a0"], ev["a1"], ev["nv"])
-
-            def run_k(argv=argv, kw=kw):
-                return join_probe.probe(*argv, **kw)
-
-            def run_p(argv=argv, kw=kw):
-                return join_probe.probe_plain(
-                    *argv, kw["layout"], kw["mode"], kw["kind"],
-                    kw["bvalid"], None, kw["dense_span"])
-
-            out_k, out_p = run_k(), run_p()
-            torch.cuda.synchronize()
-            what = f"K5a {name} J{ev['pos']} {ev['layout']}/{ev['mode']}"
-            same_outputs(out_k, out_p, what)
-            ms, plain_ms = cuda_ms(run_k), cuda_ms(run_p)
-            bound = probe_bound_ms(ev, out_k)
+            ms, plain_ms, bound = check_probe(
+                ev, f"K5a {name} J{ev['pos']} {ev['layout']}/{ev['mode']}")
             n = ev["keys"][0].shape[0]
             extra = ""
             if ev["layout"] == "sorted":
@@ -1756,6 +1781,7 @@ def phase_sf10(args, dom, rate, report):
     # the resident whole-input path of the same queries
     s.execute("set tidb_device_stream_rows = -1")
     host_check = ["q6", "q3"]
+    resident = {}
     for name in STREAM_QUERIES:
         before = counters["groupby_agg"][0]
         with StreamRecorder() as rec:
@@ -1777,6 +1803,7 @@ def phase_sf10(args, dom, rate, report):
             fail(f"sf10 {name}: streamed rows differ from the resident "
                  f"path's:\nstreamed {streamed[name].rows[:5]}\n"
                  f"resident {res.rows[:5]}")
+        resident[name] = res
         log(f"[sf10] {name}: {len(res.rows)} rows equal the resident "
             f"path's; resident {dt:.4f} s, streamed/paged "
             f"{times[name]:.4f} s")
@@ -1794,6 +1821,182 @@ def phase_sf10(args, dom, rate, report):
             f"engine's (host {dt:.3f} s, streamed/paged "
             f"{times[name]:.4f} s)")
     window_sf10(s, n, supp_counts)
+    # the rows [hybrid] must give: the resident path's, or where it did
+    # not run, the streamed rows the host engine confirmed
+    return s, {name: (resident[name], "resident") if name in resident
+               else (streamed[name], "streamed, = host engine")
+               for name in HYBRID_QUERIES}
+
+
+# -- the hybrid hash join: SF10 under memory-constrained budgets -------------
+
+#: bench.py --mem-budget's two budgets (BENCH_SPILL_r01.json): at 300 MB
+#: orders' used columns (345 MB at SF10) go over, at 120 MB most of its
+#: partitions spill
+HYBRID_BUDGETS = (300_000_000, 120_000_000)
+#: the queries run under them: Q5 must take the hybrid path; Q3 and Q9
+#: take whichever the gates choose
+HYBRID_QUERIES = ("q5", "q3", "q9")
+#: kernels a device partition launches: per probe page K2, K5a and K1,
+#: the page states and the final states fold through the merge
+HYBRID_NEED = ["expr_vm", "join_probe", "groupby_agg", "merge_states"]
+
+
+class ProbeCapture:
+    """While installed, keeps a copy of the first sorted unique probe a
+    fragment runs (the hybrid partition index's probe: the dimension
+    indexes are dense), cloned at the call, so later pages reusing the
+    staging buffers cannot change it."""
+
+    def __init__(self):
+        self.ev = None
+
+    def __enter__(self):
+        from tidb_tpu_torch.executor import device_join
+
+        def observe(event, **kw):
+            if (event == "probe" and self.ev is None
+                    and kw.get("layout") == "sorted"
+                    and kw.get("mode") == "uniq"):
+                def cl(v):
+                    if isinstance(v, (list, tuple)):
+                        return type(v)(cl(x) for x in v)
+                    return v.clone() if hasattr(v, "clone") else v
+                self.ev = {k: cl(v) for k, v in kw.items()}
+        device_join.FRAGMENT_OBSERVER[0] = observe
+        return self
+
+    def __exit__(self, *exc):
+        from tidb_tpu_torch.executor import device_join
+        device_join.FRAGMENT_OBSERVER[0] = None
+
+
+def hybrid_run(s, sql, counters):
+    """One query on the device engine under the current budget.  Returns
+    (result, seconds, launches, stats): stats is the run's
+    ``LAST_PAGED_STATS`` (kind "hybrid" with the hj_* fields, "paged",
+    or empty for the resident path) plus ``hj_ran``."""
+    import torch
+    from tidb_tpu_torch.executor import device_join, hybrid_join
+    before = {k: c[0] for k, c in counters.items()}
+    runs0 = hybrid_join.STATS["hj_runs"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = s.execute(sql)[-1]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = dict(device_join.LAST_PAGED_STATS.items())
+    st["hj_ran"] = hybrid_join.STATS["hj_runs"] - runs0
+    moved = {k: c[0] - before[k] for k, c in counters.items()}
+    return res, dt, moved, st
+
+
+def hybrid_line(tag, st, dt, rate):
+    """The ``[hybrid]`` line of one hybrid run: the split, the spill, the
+    host's partition / host-pass / wait seconds, the device pass, its
+    H2D bytes and copy time, and its bound: the probe pages' and the
+    partition build columns' bytes read once at the HBM rate plus the
+    same bytes host → device at the measured pinned rate."""
+    moved = st["h2d_bytes"] + st["build_h2d_bytes"]
+    bound = moved / HBM_BYTES_PER_S + moved / rate
+    log(f"[hybrid] {tag}: {st['hj_partitions']} partitions, "
+        f"{st['hj_spilled_partitions']} spilled ({st['hj_spill_bytes']:,} "
+        f"spill bytes), {st['hj_coproc_host_rows']:,} rows joined on the "
+        f"host; join.partition {st['hj_partition_s']:.3f} s, device pass "
+        f"{st['hj_probe_device_s']:.3f} s ({st['pages']} pages, "
+        f"{st['h2d_bytes']:,} probe bytes + {st['build_h2d_bytes']:,} "
+        f"partition bytes host→device, {st['h2d_s']:.4f} s on the copy "
+        f"stream; bound {bound:.4f} s at {rate / 1e9:.2f} GB/s pinned and "
+        f"HBM), host pass {st['hj_probe_host_s']:.3f} s, host wait "
+        f"{st['hj_host_wait_s']:.3f} s, slicing {st['slice_s']:.4f} s, "
+        f"merge {st['merge_s']:.4f} s ({st['merges']} folds); query "
+        f"{dt:.4f} s, hybrid {st['hj_total_s']:.3f} s")
+    return bound
+
+
+def hybrid_path(st):
+    if st.get("hj_ran"):
+        return "hybrid"
+    return st.get("kind") or "resident"
+
+
+def phase_hybrid(s, rate, sf10_rows, report):
+    """``[hybrid]`` — SF10 Q5 (and Q3, Q9) under bench.py --mem-budget's
+    budgets on the ``tpch10`` tables of ``[sf10]``."""
+    import torch
+    from tidb_tpu_torch.executor import hybrid_join
+    from tidb_tpu_torch.ops import residency
+    sqls = dict(QUERIES)
+    counters = stream_counters()
+    s.execute("set @@tidb_executor_engine = 'tpu'")
+    s.execute("set tidb_device_stream_rows = 0")
+    probe_cap, fold_cap = ProbeCapture(), FoldCapture()
+    try:
+        for budget in HYBRID_BUDGETS:
+            # an empty ledger and throughput store: the first run's split
+            # is the one the CPU tests hold equal to the reference's
+            residency.evict_all(f"[hybrid] budget {budget}")
+            hybrid_join._THROUGHPUT.clear()
+            torch.cuda.empty_cache()
+            s.execute(f"set global tidb_device_mem_budget = {budget}")
+            tag = f"q5 @ {budget:,} B"
+            with probe_cap, fold_cap:
+                res, dt, _m, st = hybrid_run(s, sqls["q5"], counters)
+            if not st["hj_ran"]:
+                fail(f"hybrid {tag} warm-up: the hybrid path did not run "
+                     f"(path {hybrid_path(st)})")
+            hybrid_line(f"warm-up {tag}", st, dt, rate)
+            for c in counters.values():
+                c[0] = 0
+            res, dt, moved, st = hybrid_run(s, sqls["q5"], counters)
+            if not st["hj_ran"]:
+                fail(f"hybrid {tag}: the hybrid path did not run (path "
+                     f"{hybrid_path(st)})")
+            want, what = sf10_rows["q5"]
+            if not rows_equal(res, want):
+                fail(f"hybrid {tag}: rows differ from [sf10]'s {what} "
+                     f"rows:\nhybrid {res.rows[:5]}\nsf10   {want.rows[:5]}")
+            hybrid_line(tag, st, dt, rate)
+            dev_parts = st["hj_partitions"] - st["hj_spilled_partitions"]
+            log(f"[hybrid] {tag}: {len(res.rows)} rows equal [sf10]'s "
+                f"{what} rows; {dev_parts} device partitions; launches "
+                f"{moved}")
+            if budget == HYBRID_BUDGETS[0]:
+                missing = [k for k in HYBRID_NEED if moved[k] <= 0]
+                if dev_parts < 1 or missing:
+                    fail(f"hybrid {tag}: no device partition launched "
+                         f"{missing or HYBRID_NEED}")
+            else:
+                if (st["hj_spilled_partitions"] < 1
+                        or st["hj_coproc_host_rows"] <= 0):
+                    fail(f"hybrid {tag}: no partition spilled and "
+                         "co-processed on the host")
+            for name in ("q3", "q9"):
+                res, dt, moved, st = hybrid_run(s, sqls[name], counters)
+                path = hybrid_path(st)
+                want, what = sf10_rows[name]
+                if not rows_equal(res, want):
+                    fail(f"hybrid {name} @ {budget:,} B ({path}): rows "
+                         f"differ from [sf10]'s {what} rows:\n"
+                         f"got  {res.rows[:5]}\nsf10 {want.rows[:5]}")
+                log(f"[hybrid] {name} @ {budget:,} B: path {path}; "
+                    f"{len(res.rows)} rows equal [sf10]'s {what} rows; "
+                    f"{dt:.4f} s, launches {moved}")
+                if path == "hybrid":
+                    hybrid_line(f"{name} @ {budget:,} B", st, dt, rate)
+        if probe_cap.ev is None:
+            fail("hybrid: no device partition ran a sorted probe")
+        ev = probe_cap.ev
+        ms, plain_ms, bound = check_probe(ev, "K5a hybrid partition probe")
+        log(f"[hybrid] K5a sorted probe of a partition index: page of "
+            f"{ev['keys'][0].shape[0]} rows, index of {int(ev['nv'])} "
+            f"keys (packs {ev['packs']}): exact; {ms:.3f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms)")
+        row = check_merge("hybrid q5", fold_cap.best[1])
+        report["merge_states"]["max_abs_err"] = max(
+            report["merge_states"]["max_abs_err"], row["max_abs_err"])
+    finally:
+        s.execute("set global tidb_device_mem_budget = 0")
 
 
 def main(argv=None) -> int:
@@ -1901,8 +2104,10 @@ def main(argv=None) -> int:
             f"{rate / 1e9:.3f} GB/s")
         phase_paged_sf1(args, dom, host_res, rate)
         phase_done("paged-sf1")
-        phase_sf10(args, dom, rate, report)
+        s10, sf10_rows = phase_sf10(args, dom, rate, report)
         phase_done("sf10")
+        phase_hybrid(s10, rate, sf10_rows, report)
+        phase_done("hybrid")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

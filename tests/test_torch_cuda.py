@@ -459,3 +459,59 @@ def test_window_order_matches_torch_sort(dev):
     packed = a * 3000 + b + torch.where(
         live, 0, torch.full((), 1 << 62, device=dev))
     assert torch.equal(got, torch.sort(packed, stable=True).indices)
+
+
+# -- the hybrid hash join on the card ----------------------------------------
+
+def test_hybrid_mixed_split_matches_cpu(dev):
+    """tests/test_hybrid_join.py's mixed split (a wide build side under a
+    120,000-byte budget: some partitions probe on the card, the rest
+    spill to the host worker) on the card against the same query on the
+    CPU's plain kernels: the same rows and the same split, with K5a, K1
+    and the partial-state merge launched on the card."""
+    from tidb_tpu_torch.executor import hybrid_join
+    from tidb_tpu_torch.ops import device as pdev
+    from tidb_tpu_torch.ops import residency
+    from tidb_tpu_torch.ops.kernels import join_probe, merge_states
+    from tidb_tpu_torch.storage.paged import spill_outstanding
+    from tidb_tpu_torch.testkit import TestKit
+    tk = TestKit()
+    tk.must_exec("create table fact (fk bigint, v bigint)")
+    tk.must_exec("create table big (id bigint primary key, w1 bigint, "
+                 "w2 bigint, w3 bigint, w4 bigint)")
+    rng = np.random.default_rng(3)
+    nb, nf = 6000, 8000
+    tk.must_exec("insert into big values " + ",".join(
+        f"({i},{i % 7},{i % 11},{i % 13},{i % 17})" for i in range(nb)))
+    fk, v = rng.integers(0, nb, nf), rng.integers(1, 50, nf)
+    tk.must_exec("insert into fact values " + ",".join(
+        f"({int(fk[i])},{int(v[i])})" for i in range(nf)))
+    sql = ("select w1, sum(v*w2) s, sum(w3+w4) t, count(*) c "
+           "from fact, big where fk = id group by w1 order by w1")
+    counters = (join_probe.LAUNCHES, groupby_agg.LAUNCHES,
+                merge_states.LAUNCHES)
+    out = {}
+    try:
+        for d in ("cpu", "cuda"):
+            pdev.set_device(d)
+            residency.evict_all("hybrid card test")
+            hybrid_join._THROUGHPUT.clear()
+            tk.must_exec("set global tidb_device_mem_budget = 120000")
+            tk.must_exec("set tidb_executor_engine = 'tpu'")
+            before = [c[0] for c in counters]
+            runs0 = hybrid_join.STATS["hj_runs"]
+            rows = tk.must_query(sql).rows
+            torch.cuda.synchronize()
+            out[d] = (rows, hybrid_join.STATS["hj_runs"] - runs0,
+                      hybrid_join.STATS["hj_partitions"],
+                      hybrid_join.STATS["hj_spilled_partitions"],
+                      [c[0] - b for c, b in zip(counters, before)])
+            assert spill_outstanding()["open_sets"] == 0
+            assert residency.verify_ledger()["ok"]
+    finally:
+        tk.must_exec("set global tidb_device_mem_budget = 0")
+        pdev.set_device("cuda")
+    assert out["cuda"][:4] == out["cpu"][:4]
+    _rows, ran, parts, spilled, launched = out["cuda"]
+    assert ran == 1 and 0 < spilled < parts
+    assert all(n > 0 for n in launched), launched

@@ -1297,6 +1297,120 @@ def merge_partial_states(state, parts, merge_cap, n_keys, nvals, merge_ops,
         merge_cap = dev.next_pow2(ng)
 
 
+def page_singleton_state(key_cols, key_nulls, val_cols, val_nulls, mask,
+                         agg_ops):
+    """Host rows (numpy) viewed as a partial-agg state of SINGLETON
+    groups, mergeable by _merge_states_host: a count op's singleton value
+    is its 0/1 pre-count (its merge op is sum_i, and a count result is 0,
+    never NULL); every other op's singleton value is the row's own value
+    + null flag.  Only the hybrid hash join's host half uses it
+    (executor/hybrid_join.py), on its co-processing worker."""
+    vals, vnulls = [], []
+    for j, op in enumerate(agg_ops):
+        v = np.asarray(val_cols[j])
+        vn = np.asarray(val_nulls[j])
+        if op == "count":
+            vals.append((~vn).astype(np.int64))
+            vnulls.append(np.zeros(vn.shape[0], dtype=bool))
+        else:
+            vals.append(v)
+            vnulls.append(vn)
+    m = np.asarray(mask)
+    return (tuple(np.asarray(k) for k in key_cols),
+            tuple(np.asarray(kn) for kn in key_nulls),
+            tuple(vals), tuple(vnulls),
+            int(np.count_nonzero(m)), m)
+
+
+def _merge_states_host(alls, merge_cap, n_keys, nvals, merge_ops, key_pack):
+    """numpy fold of host partial-agg states — the hybrid hash join's
+    host half folds its spilled partitions with it on the co-processing
+    worker, which must not touch the card.  Packs the key tuple EXACTLY
+    like K1 (null -> slot 0, value+offset+1), stable argsort so the
+    first-occurrence row of every group is the earliest partial's
+    representative (K1's 'first'), then reduceat per aggregate.  Output
+    mirrors a K1 state with numpy arrays: (keys, key_nulls, results,
+    result_nulls, n_groups, valid); the caller uploads it for the final
+    fold (merge_partial_states)."""
+    keys = [np.concatenate([np.asarray(p[0][k]) for p in alls])
+            for k in range(n_keys)]
+    knulls = [np.concatenate([np.asarray(p[1][k]) for p in alls])
+              for k in range(n_keys)]
+    vals = [np.concatenate([np.asarray(p[2][j]) for p in alls])
+            for j in range(nvals)]
+    vnulls = [np.concatenate([np.asarray(p[3][j]) for p in alls])
+              for j in range(nvals)]
+    # p[5] is each state's validity mask: arange<ng for compact states, an
+    # arbitrary row mask for raw singleton pages
+    live = np.concatenate([np.asarray(p[5]) for p in alls])
+    packed = np.zeros(live.shape[0], dtype=np.int64)
+    for (bits, offset), k, kn in zip(key_pack, keys, knulls):
+        shifted = k.astype(np.int64) + np.int64(offset + 1)
+        packed = (packed << np.int64(bits)) | np.where(kn, 0, shifted)
+    idx = np.nonzero(live)[0]
+    order = np.argsort(packed[idx], kind="stable")
+    sidx = idx[order]
+    sk = packed[idx][order]
+    m = sk.shape[0]
+    new = np.empty(m, dtype=bool)
+    if m:
+        new[0] = True
+        np.not_equal(sk[1:], sk[:-1], out=new[1:])
+    bounds = np.nonzero(new)[0]
+    ng = int(bounds.shape[0])
+    cap = merge_cap
+    while ng > cap:
+        cap *= 2
+    rep = sidx[bounds]
+
+    def pad(a):
+        out = np.zeros(cap, dtype=a.dtype)
+        out[:ng] = a
+        return out
+
+    key_out = tuple(pad(k[rep]) for k in keys)
+    key_null_out = tuple(pad(kn[rep]) for kn in knulls)
+    results = []
+    result_nulls = []
+    for j, opn in enumerate(merge_ops):
+        v = vals[j]
+        vn = vnulls[j]
+        if opn == "first":
+            results.append(pad(v[rep]))
+            result_nulls.append(pad(vn[rep]))
+            continue
+        svn = vn[sidx]
+        nonnull = np.add.reduceat(
+            (~svn).astype(np.int64), bounds) if ng else np.zeros(
+                0, dtype=np.int64)
+        if opn == "sum_i":
+            sv = np.where(vn, 0, v.astype(np.int64))[sidx]
+            seg = (np.add.reduceat(sv, bounds) if ng
+                   else np.zeros(0, dtype=np.int64))
+        elif opn == "sum_f":
+            sv = np.where(vn, 0.0, v.astype(np.float64))[sidx]
+            seg = (np.add.reduceat(sv, bounds) if ng
+                   else np.zeros(0, dtype=np.float64))
+        elif opn in ("min", "max"):
+            if np.issubdtype(v.dtype, np.floating):
+                sent = np.inf if opn == "min" else -np.inf
+            else:
+                ii = np.iinfo(v.dtype)
+                sent = ii.max if opn == "min" else ii.min
+            sv = np.where(vn, sent, v)[sidx]
+            red = np.minimum if opn == "min" else np.maximum
+            seg = (red.reduceat(sv, bounds) if ng
+                   else np.zeros(0, dtype=v.dtype))
+        else:
+            raise ValueError(opn)
+        results.append(pad(seg))
+        result_nulls.append(pad(nonnull == 0) if ng
+                            else np.zeros(cap, bool))
+    valid = np.arange(cap) < ng
+    return (key_out, key_null_out, tuple(results), tuple(result_nulls),
+            ng, valid), cap
+
+
 #: window functions the device kernel computes (reference:
 #: executor/window.go; unistore runs window fragments storage-side)
 _WIN_RANKS = {"row_number", "rank", "dense_rank", "percent_rank",

@@ -43,10 +43,12 @@ Anything else raises DeviceUnsupported and falls back to the host path.
 A probe too long to stay resident (or a disk-backed one) pages:
 ``_paged_join_agg`` stages the probe leaf page by page (ops/stream.py),
 runs the fragment per page and folds the pages' partial states with the
-merge kernel (ops/kernels/merge_states.py).  Not ported yet (ROADMAP
-queue 1 item 4): the hybrid hash join.  Where the reference would take
-it, ``device_join_agg`` raises DeviceUnsupported under the reference's
-own gate, and the host engine runs the query.
+merge kernel (ops/kernels/merge_states.py).  A build side larger than
+the device memory budget goes to the hybrid hash join
+(executor/hybrid_join.py, ``_maybe_hybrid``): it radix-partitions the
+build, probes the partitions that fit on the card through this same
+fragment page by page, and joins the spilled ones on a host worker
+concurrently, folding both halves' partial states with the merge kernel.
 """
 
 from __future__ import annotations
@@ -67,9 +69,6 @@ from .device_exec import (
     _assemble_agg, _estimate_groups, _expr_sig, _plan_agg, _timed_jit,
     acquire_pipeline)
 from .join_index import build_join_index
-
-_NOT_PORTED_HYBRID = ("not yet ported: ROADMAP queue 1 item 4 (hybrid hash "
-                      "join)")
 
 #: optional callback(event, **arrays) at every kernel call of a fragment
 #: run: lets a harness (chip_smoke.py) hold the kernels against their
@@ -1005,10 +1004,7 @@ def device_join_agg(agg_plan, agg_conds, child_exec, ctx):
                     "left join residual conds need a unique build")
 
     # paged-probe dispatch: a disk-backed (or huge) fact side must stream
-    # pages — uploading it whole would exceed device memory.  The hybrid
-    # hash join is not ported yet: where the reference would take it, the
-    # port declines under the reference's own gate and the host engine
-    # runs the query
+    # pages — uploading it whole would exceed device memory
     from ..storage.paged import chunk_is_paged, DEFAULT_PAGE_ROWS
     probe = _probe_spine(root)
     any_paged = any(chunk_is_paged(leaf.chunk) for leaf in leaves)
@@ -1021,16 +1017,19 @@ def device_join_agg(agg_plan, agg_conds, child_exec, ctx):
         # fragment shape outside the paged language goes to the host
         # executors, which stream
         raise DeviceUnsupported("paged leaf outside streamed-probe language")
-    if pageable and (hybrid_deferred is not None or len(_over_budget_builds(
-            leaves, joins, agg_plan, agg_conds,
-            exclude_id=probe.leaf_id)) == 1):
-        # the reference's _maybe_hybrid would route this build side to
-        # the hybrid hash join
-        raise DeviceUnsupported(_NOT_PORTED_HYBRID)
+    if pageable:
+        # hybrid hash join: a build side larger than the residency budget
+        # radix-partitions — fitting partitions probe on the card,
+        # overflow spills to host pages and probes CONCURRENTLY on a
+        # supervisor worker — instead of surrendering the whole fragment
+        hj = _maybe_hybrid(root, leaves, joins, probe, agg_plan,
+                           agg_conds, ctx, deferred=hybrid_deferred)
+        if hj is not None:
+            return hj
     if hybrid_deferred is not None:
         # the deferred (partition-indexed) strategy exists ONLY for the
-        # hybrid path; the resident dispatcher would crash on its None
-        # index — degrade to the host engine instead
+        # hybrid path; the resident/paged dispatchers would crash on its
+        # None index — degrade to the host engine instead
         raise DeviceUnsupported(
             "over-budget build side outside the hybrid join language")
     if pageable:
@@ -1247,6 +1246,31 @@ def _over_budget_builds(leaves, joins, agg_plan, agg_conds,
     return {leaf.leaf_id for leaf in leaves
             if leaf.leaf_id != exclude_id
             and _leaf_used_bytes(leaf, used) > budget}
+
+
+def _maybe_hybrid(root, leaves, joins, probe, agg_plan, agg_conds, ctx,
+                  deferred=None):
+    """Route an over-budget build side to the hybrid hash join
+    (executor/hybrid_join.py).  Returns the result Chunk, or None when
+    the fragment has no over-budget build (the resident/paged paths
+    proceed) or the hybrid language rejects it (fallthrough — unless the
+    strategy was DEFERRED, where only the hybrid path can run it and the
+    caller must degrade)."""
+    big_id = deferred
+    if big_id is None:
+        over = _over_budget_builds(leaves, joins, agg_plan, agg_conds,
+                                   exclude_id=probe.leaf_id)
+        if len(over) != 1:
+            return None  # nothing over budget (or >1: out of language)
+        big_id = next(iter(over))
+    from .hybrid_join import hybrid_join_agg
+    try:
+        return hybrid_join_agg(root, leaves, joins, probe, big_id,
+                               agg_plan, agg_conds, ctx)
+    except DeviceUnsupported:
+        if deferred is not None:
+            raise
+        return None
 
 
 #: a paged BUILD-side table may be deliberately materialized into HBM up

@@ -10,7 +10,9 @@ built by hand:
 * every streamed column has a ring of ``slots`` (2) PRE-ALLOCATED pinned
   host buffers, for data and NULL flags, and as many device buffers;
 * a page slice (RAM, or an ``np.memmap`` of a paged table) is copied
-  into the pinned buffers of a free slot on the host; the tail page pads
+  into the pinned buffers of a free slot on the host — or, for the
+  hybrid hash join's partitions, a page of row indices is gathered into
+  them (``np.take`` with ``out=``, no intermediate copy); the tail page pads
   as ``ops/device.pad_host`` does (data 0, NULL flag True);
 * a side copy stream fills the slot's device buffers with
   ``copy_(non_blocking=True)`` and records an event; the compute stream
@@ -86,11 +88,13 @@ class PageStager:
             self.host.append(h)
             self.dev.append(d)
 
-    def stage(self, lo: int, hi: int):
-        """Rows [lo, hi) of every array as device tensors of `page_rows`
-        rows, ready on the current stream.  Returns (env, slot): env maps
-        each key to its (data, nulls) pair; hand `slot` to
-        :meth:`release` once the page's kernels are queued."""
+    def stage(self, lo: int, hi: int, rows=None):
+        """Rows [lo, hi) of every array — or, with `rows` (an int64 row
+        index array), rows ``rows[lo:hi]``, gathered straight into the
+        pinned buffers — as device tensors of `page_rows` rows, ready on
+        the current stream.  Returns (env, slot): env maps each key to
+        its (data, nulls) pair; hand `slot` to :meth:`release` once the
+        page's kernels are queued."""
         m = hi - lo
         if not 0 < m <= self.page_rows:
             raise ValueError(f"page of {m} rows (page_rows "
@@ -103,11 +107,16 @@ class PageStager:
             self._free[s].synchronize()
             self._free[s] = None
         t0 = time.perf_counter()
+        sel = None if rows is None else rows[lo:hi]
         for key, (data, nulls) in self.arrays.items():
             hd, hn = self.host[s][key]
             vd, vn = hd.numpy(), hn.numpy()
-            np.copyto(vd[:m], data[lo:hi], casting="no")
-            np.copyto(vn[:m], nulls[lo:hi], casting="no")
+            if sel is None:
+                np.copyto(vd[:m], data[lo:hi], casting="no")
+                np.copyto(vn[:m], nulls[lo:hi], casting="no")
+            else:
+                np.take(data, sel, out=vd[:m], mode="clip")
+                np.take(nulls, sel, out=vn[:m], mode="clip")
             if m < self.page_rows:
                 vd[m:] = 0
                 vn[m:] = True
