@@ -20,7 +20,9 @@ Phases, each fatal on failure:
    covering every aggregate, NULL keys, the pack and hash paths and
    capacity overflow (integers exact, floats rtol 1e-9 / atol 1e-12:
    atomics sum in another order), K4 the top-k sort at cap = 2^21,
-   k = 10, with descending keys, NULLs and ties (exact), K5a the join
+   k = 10, with descending keys, NULLs and ties (exact, top-k and full
+   order) and one float key against torch.sort(stable=True) (exact), with
+   its radix passes and bits per word, K5a the join
    probe on Q3's dense unique probes and Q9's sorted partsupp probe
    (exact), K5b the CSR expansion of orders into lineitem at SF1 —
    inner, left, and with the total over the capacity (exact), K5b's count
@@ -55,7 +57,10 @@ Phases, each fatal on failure:
    partition (exact), timed beside its bound and a stable ``torch.sort``
    of the bucket ids with the gathers; kernel B against its plain version
    on the int64 and float64 steps' largest shard (int64 exact, float64
-   rtol 1e-9), timed beside its bound.  One ``[mpp]`` line per run: the
+   rtol 1e-9), timed beside its bound; K4 on the largest shard build
+   side those runs sorted (one int64 key, invalid rows last) against its
+   plain version and torch.sort(stable=True) of the packed key (exact),
+   both timed.  One ``[mpp]`` line per run: the
    time, fragments, shuffles, exchange bytes, retries and launches; and
    Q3 once more under torch.profiler (device busy time, idle share, the
    kernels with the most device time);
@@ -67,7 +72,8 @@ Phases, each fatal on failure:
    DOUBLE sum), and a 1.5M-partition window: K10 against its plain
    version on each one's full captured inputs (W2, W4, 1.5M partitions;
    integers exact, floats rtol 1e-9 / atol 1e-12), K4's window order on
-   W2 against torch.sort(stable=True) of the packed key; then, every
+   W2 against torch.sort(stable=True) of the packed key, K4's time, passes
+   and bits per word on W2 and W4; then, every
    launch counter set to 0, W1-W4 on the device engine, each launching
    K2, K4 and K10, ``engine:tpu`` on every Window in EXPLAIN ANALYZE, W2's
    count, sum of row numbers and largest count equal to the generated
@@ -101,8 +107,10 @@ Phases, each fatal on failure:
    device, the copies' device time, the host slicing, sync and merge
    times, and the H2D bound at the pinned rate this run measures (one
    256 MiB copy); last W2 over the SF10 lineitem on the device (bucket
-   2^26), K10 against its plain version on its inputs, its count, sum of
-   row numbers and largest count against the generated partition sizes;
+   2^26), K10 against its plain version on its inputs, K4's order against
+   torch.sort(stable=True) of the packed key (both timed), its count, sum
+   of row numbers and largest count against the generated partition
+   sizes;
 9. ``[hybrid]`` — on the same ``tpch10`` tables, ``tidb_device_mem_budget``
    at 300,000,000 and then 120,000,000 bytes (``bench.py --mem-budget``'s
    budgets, ``BENCH_SPILL_r01.json``), each from an empty residency
@@ -690,20 +698,63 @@ def phase_kernels(args, captured, report):
     bound = (nbytes([key0, key1, n0, n1]) + k * 8) / HBM_BYTES_PER_S * 1e3
     log(f"[K4] cap={cap}, k={k}, desc int key + asc float key, NULLs, "
         f"ties: exact (top-k and full order); {ms:.3f} ms (plain "
-        f"{plain_ms:.3f} ms, bound {bound:.4f} ms)")
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms; "
+        f"{k4_passes(spec, cap, ng, 'topk', report)})")
     # one key: torch.sort computes the same order
     one = ([key1], [up(np.zeros(cap, dtype=bool))], [True], [False])
     got = sort_topk.sort_indices(*one, cap, cap, k)
     ref = torch.sort(key1, descending=True, stable=True)[1][:k]
-    if not torch.equal(got, ref):
+    full_one = sort_topk._sort_cuda(*one, cap, cap)
+    if not torch.equal(got, ref) or not torch.equal(
+            full_one, torch.sort(key1, descending=True, stable=True)[1]):
         fail("K4: single-key order differs from torch.sort")
     one_ms = cuda_ms(lambda: sort_topk.sort_indices(*one, cap, cap, k))
     lib_ms = cuda_ms(lambda: torch.sort(key1, descending=True,
                                         stable=True)[1][:k])
-    log(f"[K4] single float key desc, cap={cap}: {one_ms:.3f} ms "
-        f"(torch.sort {lib_ms:.3f} ms)")
+    log(f"[K4] single float key desc, cap={cap}: equal to "
+        f"torch.sort(stable=True); {one_ms:.3f} ms (torch.sort "
+        f"{lib_ms:.3f} ms; {k4_passes(one, cap, cap, 'one_key', report)})")
     report["sort_topk"].update(dict(max_abs_err=0.0, ms=ms,
-                                    plain_ms=plain_ms, bound_ms=bound))
+                                    plain_ms=plain_ms, bound_ms=bound,
+                                    ms_one_key=one_ms,
+                                    library_ms_one_key=lib_ms))
+
+
+def k4_split(spec, n, ng, call_ms, report):
+    """Where one K4 call's time goes (W2's order): the device time of its
+    kernels (the statistics, the packing with its histograms, the plans,
+    the onesweep passes) and the copies, from torch.profiler (the mean of
+    10 calls); the rest of the call's `call_ms` (CUDA events) is the
+    host's part: the one device-to-host read of the statistics, the
+    layout and the launches."""
+    from tidb_tpu_torch.ops.kernels import sort_topk
+    cols, nulls, descs, nfs = spec
+    parts = device_ms_by_kernel(lambda: sort_topk._sort_cuda(
+        cols, nulls, descs, nfs, n, ng))
+    dev_ms = sum(parts.values())
+    names = ", ".join(f"{k.split('(')[0]} {v:.3f} ms"
+                      for k, v in sorted(parts.items(), key=lambda t: -t[1]))
+    log(f"[K4] w2 order by kernel: {names}; device {dev_ms:.3f} ms of the "
+        f"call's {call_ms:.3f} ms, the host's statistics read, layout and "
+        f"launches {call_ms - dev_ms:.3f} ms")
+    report["sort_topk"].update(window_order_device_ms=dev_ms,
+                               window_order_host_ms=call_ms - dev_ms)
+
+
+def k4_passes(spec, n, ng, shape, report):
+    """K4's layout at one shape: the onesweep passes it ran (digit passes
+    whose 8-bit digit had one value are skipped on the device) and the
+    bits of each 64-bit word of the composite key; kept in the report's
+    K4 row under ``passes`` / ``bits_per_word``."""
+    from tidb_tpu_torch.ops.kernels import sort_topk
+    cols, nulls, descs, nfs = spec
+    info = {}
+    sort_topk._sort_cuda(cols, nulls, descs, nfs, n, ng, info=info)
+    row = report["sort_topk"]
+    row.setdefault("passes", {})[shape] = info["passes"]
+    row.setdefault("bits_per_word", {})[shape] = list(info["word_bits"])
+    return (f"{info['passes']} of {info['digit_passes']} 8-bit digit "
+            f"passes, bits per word {list(info['word_bits'])}")
 
 
 #: one random read of an index array, counted as one 32-byte sector
@@ -1189,11 +1240,12 @@ def mpp_counters():
 
 class KernelCapture:
     """While installed, wraps kernel A's ``partition``, kernel B's
-    ``join_sum`` and the host join index build (K6): counts the bytes each
-    partition's grid sends through the mesh's all_to_all and the seconds
-    spent building host join indexes (the skew guard's), and, with `keep`,
-    keeps each kernel's largest call's inputs and outputs, per tag, for
-    the checks against the plain versions.  Timed runs keep nothing."""
+    ``join_sum``, K4's ``valid_first_order`` (a shard's join sort) and the
+    host join index build (K6): counts the bytes each partition's grid
+    sends through the mesh's all_to_all and the seconds spent building
+    host join indexes (the skew guard's), and, with `keep`, keeps each
+    kernel's largest call's inputs and outputs, per tag, for the checks
+    against the plain versions.  Timed runs keep nothing."""
 
     def __init__(self, keep=False):
         self.calls = {}
@@ -1204,11 +1256,19 @@ class KernelCapture:
 
     def __enter__(self):
         from tidb_tpu_torch.executor import device_join
-        from tidb_tpu_torch.ops.kernels import radix_exchange, shuffle_join
-        self._mods = (radix_exchange, shuffle_join, device_join)
+        from tidb_tpu_torch.ops.kernels import (radix_exchange, shuffle_join,
+                                                sort_topk)
+        self._mods = (radix_exchange, shuffle_join, device_join, sort_topk)
         self._fns = (radix_exchange.partition, shuffle_join.join_sum,
-                     device_join.build_join_index)
-        part_fn, sum_fn, index_fn = self._fns
+                     device_join.build_join_index,
+                     sort_topk.valid_first_order)
+        part_fn, sum_fn, index_fn, order_fn = self._fns
+
+        def valid_first_order(key, invalid):
+            out = order_fn(key, invalid)
+            self._keep("K4", key.shape[0], dict(key=key, invalid=invalid,
+                                                out=out))
+            return out
 
         def build_join_index(*a, **kw):
             t = time.perf_counter()
@@ -1236,6 +1296,7 @@ class KernelCapture:
         radix_exchange.partition = partition
         shuffle_join.join_sum = join_sum
         device_join.build_join_index = build_join_index
+        sort_topk.valid_first_order = valid_first_order
         return self
 
     def _keep(self, kernel, size, ev):
@@ -1247,7 +1308,8 @@ class KernelCapture:
 
     def __exit__(self, *exc):
         (self._mods[0].partition, self._mods[1].join_sum,
-         self._mods[2].build_join_index) = self._fns
+         self._mods[2].build_join_index,
+         self._mods[3].valid_first_order) = self._fns
         return False
 
 
@@ -1459,6 +1521,39 @@ def check_join_sum(ev, what):
     return ms, plain_ms, moved / HBM_BYTES_PER_S * 1e3, err
 
 
+def check_join_sort(ev, tag, report):
+    """K4 on the mesh's join-sort shape (the largest shard build side the
+    kept runs sorted: one int64 key, its invalid rows last): the order
+    against sort_plain and against torch.sort(stable=True) of the packed
+    key (exact), both timed."""
+    import torch
+    from tidb_tpu_torch.ops.kernels import sort_topk
+    key, invalid = ev["key"], ev["invalid"]
+    n = key.shape[0]
+    spec = ([key], [invalid], [False], [False])
+    got = sort_topk.valid_first_order(key, invalid)
+    if not torch.equal(got, ev["out"]) or not torch.equal(
+            got, sort_topk.sort_plain(*spec, n, n)):
+        fail("K4 join sort: order differs from the plain version")
+    stats = sort_topk.key_stats_plain(*spec[:2], spec[2], n)
+    layout = sort_topk.pack_layout(*stats, n, n)
+    if layout.words != 1:
+        fail(f"K4 join sort: the key packs into {layout.words} words")
+    packed = sort_topk.pack_words_plain(*spec, n, n, layout)[0] ^ (-1 << 63)
+    if not torch.equal(got, torch.sort(packed, stable=True).indices):
+        fail("K4 join sort: order differs from torch.sort of the packed key")
+    ms = cuda_ms(lambda: sort_topk.valid_first_order(key, invalid))
+    lib_ms = cuda_ms(lambda: torch.sort(packed, stable=True))
+    bound = (nbytes([key, invalid]) + 8 * n) / HBM_BYTES_PER_S * 1e3
+    passes = k4_passes(spec, n, n, "join_sort", report)
+    log(f"[mpp] K4 join sort on the largest shard build side ({tag}: {n} "
+        f"rows, {int(invalid.sum())} invalid): exact; {ms:.3f} ms (bound "
+        f"{bound:.4f} ms; {passes}); torch.sort(stable=True) of the packed "
+        f"key {lib_ms:.3f} ms")
+    report["sort_topk"].update(ms_join_sort=ms, join_sort_bound_ms=bound,
+                               library_ms_join_sort=lib_ms)
+
+
 def mpp_profile(tag, s, name, sql):
     """One more run of `sql` under torch.profiler: the wall time, the
     device's busy time (the kernels' own time summed: the shards launch
@@ -1490,9 +1585,38 @@ def mpp_profile(tag, s, name, sql):
     busy = sum(k[0] for k in kernels)
     top = ", ".join(f"{key[:40]} {ms:.3f} ms x{n}" for ms, key, n in
                     sorted(kernels, reverse=True)[:8])
+    k4 = [(ms, n) for ms, key, n in kernels if is_k4_kernel(key)]
     log(f"[{tag}] {name} profile: wall {wall:.3f} ms, {index}, device "
-        f"busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); top "
-        f"kernels: {top}")
+        f"busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); K4's "
+        f"kernels {sum(k[0] for k in k4):.3f} ms in "
+        f"{sum(k[1] for k in k4)} launches; top kernels: {top}")
+
+
+def is_k4_kernel(name):
+    """A kernel of csrc/sort_topk.cu, by its (demangled) name."""
+    return name.split("(")[0].split("<")[0].split()[-1].startswith("sk_")
+
+
+def device_ms_by_kernel(fn, calls=10):
+    """Device milliseconds of each kernel and copy one call of `fn`
+    launches: torch.profiler over `calls` calls after a warm-up call,
+    averaged (the profiler can drop the first launch of its window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / calls
+    return out
 
 
 def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
@@ -1649,6 +1773,12 @@ def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
     # times of the int64 shard, the error of the float64 one
     report["shuffle_join"].update(
         sums["int64"], max_abs_err=sums["float64"]["max_abs_err"])
+    sorts = [(size, tag, ev) for (kernel, tag), (size, ev)
+             in cap.calls.items() if kernel == "K4"]
+    if not sorts:
+        fail("mpp: K4's join sort inputs were not captured")
+    _size, tag, ev = max(sorts, key=lambda t: t[0])
+    check_join_sort(ev, tag, report)
     log(f"[mpp] K11 dist steps: {steps}")
     # the placements leave the card for the phases after this one
     with mpp_exec._PLACE_LOCK:
@@ -1950,12 +2080,18 @@ def phase_window(s, n_rows, supp_counts, report):
             / HBM_BYTES_PER_S * 1e3
         extra = (f"; equal to torch.sort(stable=True) of the packed int64 "
                  f"key, {lib_ms:.3f} ms" if name == "w2" else "")
+        spec = ([k[0] for k in keys], [k[1] for k in keys], ev["descs"],
+                [not d for d in ev["descs"]])
+        passes = k4_passes(spec, ev["nb"], ev["n_live"], name, report)
         log(f"[K4] window order {name}: nb={ev['nb']}, {len(keys)} keys: "
-            f"{k4:.3f} ms (bound {bound:.4f} ms){extra}")
+            f"{k4:.3f} ms (bound {bound:.4f} ms; {passes}){extra}")
         if name == "w2":
             report["sort_topk"].update(window_order_ms=k4,
                                        window_order_bound_ms=bound,
                                        window_order_library_ms=lib_ms)
+            k4_split(spec, ev["nb"], ev["n_live"], k4, report)
+        else:
+            report["sort_topk"][f"window_order_{name}_ms"] = k4
     stages = {name: window_stage_ms(events[name])
               for name, _sql in WINDOW_QUERIES}
     events.clear()
@@ -2006,11 +2142,12 @@ def phase_window(s, n_rows, supp_counts, report):
             f"); host engine {host_s:.3f} s; first {host.rows[:1]}")
 
 
-def window_sf10(s, n_rows, supp_counts):
+def window_sf10(s, n_rows, supp_counts, report):
     """W2 over the SF10 lineitem on the device (the host engine's window
     over 60M rows does not fit the time budget): K10 against its plain
-    version on its inputs, the result against the generated partition
-    sizes, and its time."""
+    version on its inputs, K4's order against torch.sort(stable=True) of
+    the packed key (both timed), the result against the generated
+    partition sizes, and its time."""
     import torch
     from tidb_tpu_torch.executor import device_exec
     s.execute("set @@tidb_executor_engine = 'tpu'")
@@ -2023,8 +2160,21 @@ def window_sf10(s, n_rows, supp_counts):
     log(f"[window] sf10 warm-up w2: {time.perf_counter() - t0:.3f} s")
     ev = cap.last
     check_window_kernel("w2 (sf10)", ev)
+    lib_ms = check_window_order(ev)
     k2, k4, k10, d2h = window_stage_ms(ev)
-    del ev, cap
+    keys = ev["keys"]
+    bound = (nbytes([t for k in keys for t in k]) + 8 * ev["nb"]) \
+        / HBM_BYTES_PER_S * 1e3
+    passes = k4_passes(([k[0] for k in keys], [k[1] for k in keys],
+                        ev["descs"], [not d for d in ev["descs"]]),
+                       ev["nb"], ev["n_live"], "sf10_w2", report)
+    log(f"[K4] window order w2 (sf10): nb={ev['nb']}, {len(keys)} keys: "
+        f"{k4:.3f} ms (bound {bound:.4f} ms; {passes}); equal to "
+        f"torch.sort(stable=True) of the packed int64 key, {lib_ms:.3f} ms")
+    report["sort_topk"].update(window_order_sf10_ms=k4,
+                               window_order_sf10_bound_ms=bound,
+                               library_ms_sf10_w2_packed=lib_ms)
+    del ev, cap, keys
     torch.cuda.empty_cache()
     counters = window_counters()
     for c in counters.values():
@@ -2404,7 +2554,7 @@ def phase_sf10(args, dom, rate, report):
         log(f"[sf10] {name}: {len(host.rows)} rows equal the host "
             f"engine's (host {dt:.3f} s, streamed/paged "
             f"{times[name]:.4f} s)")
-    window_sf10(s, n, supp_counts)
+    window_sf10(s, n, supp_counts, report)
     # the rows [hybrid] and [mpp-sf10] must give: the resident path's,
     # or where it did not run, the streamed rows the host engine confirmed
     return s, {name: (resident[name], "resident") if name in resident
@@ -2729,9 +2879,17 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # K4's row also carries its time as the window's order (W2, 2^23)
+    # K4's row also carries its time at the other main-path shapes (the
+    # window's order at W2, W4 and SF10 W2; the mesh's join sort; one
+    # float key), torch.sort's time there, and its passes and bits per
+    # word at each shape
     extra = ("window_order_ms", "window_order_bound_ms",
-             "window_order_library_ms")
+             "window_order_library_ms", "window_order_w4_ms",
+             "window_order_sf10_ms", "window_order_sf10_bound_ms",
+             "library_ms_sf10_w2_packed", "ms_one_key", "library_ms_one_key",
+             "ms_join_sort", "join_sort_bound_ms", "library_ms_join_sort",
+             "window_order_device_ms", "window_order_host_ms",
+             "passes", "bits_per_word")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report.values()]}))

@@ -99,17 +99,66 @@ def test_groupby_matches_plain(dev, pack):
             assert torch.equal(a, b), op
 
 
-def test_topk_matches_plain(dev):
+_I64 = np.iinfo(np.int64)
+_SPECIALS = np.array([-0.0, 0.0, np.nan, -np.nan, np.inf, -np.inf, 1.5,
+                      -2.25, 5e-324, -1e308, 1e308])
+
+
+def _topk_case(name, cap, rng):
+    """(cols, nulls, descs, nulls_first) of one K4 case, numpy."""
+    def nul(p):
+        return rng.random(cap) < p
+
+    if name == "two-keys":  # the original case: int desc, float asc, NULLs
+        return ([rng.integers(0, 100, cap), rng.standard_normal(cap).round(1)],
+                [nul(0.05), nul(0.05)], [True, False], [False, True])
+    if name == "int64-extremes":
+        vals = np.array([_I64.min, _I64.max, _I64.min + 1, 0, -1, 1])
+        return ([rng.choice(vals, cap), rng.integers(0, 3, cap)],
+                [nul(0.1), nul(0.1)], [True, False], [False, True])
+    if name == "float-specials":
+        return ([rng.choice(_SPECIALS, cap), rng.choice(_SPECIALS, cap)],
+                [nul(0.1), nul(0.3)], [False, True], [True, False])
+    if name == "one-distinct-value":
+        return ([np.full(cap, 42), rng.integers(0, 5, cap)],
+                [nul(0.0), nul(0.1)], [False, True], [False, False])
+    if name == "multi-word":  # two full-range int64 keys: 129+ bits
+        return ([rng.integers(_I64.min, _I64.max, cap),
+                 rng.integers(_I64.min, _I64.max, cap)],
+                [nul(0.1), nul(0.0)], [False, True], [True, True])
+    if name == "sixteen-keys":
+        return ([rng.integers(-(1 << s), 1 << s, cap) for s in range(8)]
+                + [rng.standard_normal(cap).round(1) for _ in range(8)],
+                [nul(0.05 * (j % 3)) for j in range(16)],
+                [bool(j % 2) for j in range(16)],
+                [bool(j % 3) for j in range(16)])
+    raise AssertionError(name)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 1023, 1025, (1 << 16), (1 << 20) + 7])
+@pytest.mark.parametrize("case", ["two-keys", "int64-extremes",
+                                  "float-specials", "one-distinct-value",
+                                  "multi-word", "sixteen-keys"])
+def test_topk_matches_plain(dev, case, cap):
+    """K4's full order and its top-k (k = 1, 25 and every slot) equal
+    sort_plain's exactly, with no slot live, some and all.  sort_plain
+    runs on CPU copies of the keys: torch's sort of CUDA tensors orders
+    -0.0 and the NaNs otherwise than its CPU sort and the reference."""
     rng = np.random.default_rng(3)
-    cap = 1 << 16
-    cols = [_up(rng.integers(0, 100, cap), dev),
-            _up(rng.standard_normal(cap).round(1), dev)]
-    nulls = [_up(rng.random(cap) < 0.05, dev) for _ in cols]
-    spec = (cols, nulls, [True, False], [False, True], cap, cap - 77)
-    assert torch.equal(sort_topk.sort_indices(*spec, 25),
-                       sort_topk.sort_plain(*spec)[:25])
-    assert torch.equal(sort_topk._sort_cuda(*spec)[:cap],
-                       sort_topk.sort_plain(*spec))
+    cols, nulls, descs, nfs = _topk_case(case, cap, rng)
+    host = ([torch.from_numpy(np.ascontiguousarray(c)) for c in cols],
+            [torch.from_numpy(m) for m in nulls])
+    cols = [_up(c, dev) for c in cols]
+    nulls = [_up(m, dev) for m in nulls]
+    for ng in sorted({0, cap - min(77, cap // 2), cap}):
+        spec = (cols, nulls, descs, nfs, cap, ng)
+        full = sort_topk.sort_plain(*host, descs, nfs, cap, ng).to(dev)
+        got = sort_topk._sort_cuda(*spec)
+        torch.cuda.synchronize()
+        assert got.shape[0] >= cap
+        assert torch.equal(got[:cap], full), (case, cap, ng)
+        for k in sorted({1, min(25, cap), cap}):
+            assert torch.equal(sort_topk.sort_indices(*spec, k), full[:k])
 
 
 # -- the join kernels (K5a join_probe, K5b join_expand, K2's LOADG, K7) ------
