@@ -13,13 +13,20 @@ Phases, each fatal on failure:
    with ANALYZE, one warm-up run of each query (which records the
    programs and inputs the main path hands the kernels) and EXPLAIN
    ANALYZE, which must show ``engine:tpu`` on every HashAgg;
+1b. the build's ptxas report: every entry function's stack frame and
+   registers; a K2 entry with a stack frame fails the run;
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes: K2/K3 the expression VM on the Q1, Q6 and top-N
-   programs and (K2's LOADG) on Q3's post-join program (exact), K1 the
-   group-by aggregate on the Q1 and top-N inputs and on seeded cases
-   covering every aggregate, NULL keys, the pack and hash paths and
-   capacity overflow (integers exact, floats rtol 1e-9 / atol 1e-12:
-   atomics sum in another order), K4 the top-k sort at cap = 2^21,
+   programs, (K2's LOADG) on Q3's post-join program and on a program of
+   64 registers over Q1's rows (exact), K1 the group-by aggregate on the
+   Q1 and top-N inputs, on Q1's rows in one hot group, on Q1's values
+   over 2^7, 2^8 and 2^9 uniform groups (timed also with its buckets
+   forced into the workspace) and on seeded
+   cases covering every aggregate, NULL keys, the pack and hash paths
+   and capacity overflow (integers exact, floats rtol 1e-9 / atol 1e-12:
+   atomics sum in another order) — each K2 and K1 line with one call's
+   device time, device operations and host issue time, K2's with its
+   rows per thread and shared bytes per block — K4 the top-k sort at cap = 2^21,
    k = 10, with descending keys, NULLs and ties (exact, top-k and full
    order) and one float key against torch.sort(stable=True) (exact), with
    its radix passes and bits per word, K5a the join
@@ -438,6 +445,27 @@ def compare_agg(out_k, out_p, agg_ops, capacity, what):
 
 # -- phases -------------------------------------------------------------------
 
+def ptxas_entries(text):
+    """[(entry function, stack frame bytes, registers)] of one source's
+    ``ptxas -v`` report (build.py compiles with ``-Xptxas -v``)."""
+    import re
+    out, fn, stack = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, stack = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and fn:
+            stack = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, stack, int(m.group(1))))
+            fn = None
+    return out
+
+
 def phase_build():
     from tidb_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
@@ -448,11 +476,20 @@ def phase_build():
     for src in build.sources():
         name = os.path.splitext(os.path.basename(src))[0]
         logp = os.path.join(build.BUILD_DIR, name + ".log")
-        if os.path.exists(logp):
-            with open(logp) as f:
-                for line in f:
-                    if "registers" in line or "spill" in line:
-                        log(f"[build] {name}: {line.strip()}")
+        if not os.path.exists(logp):
+            continue
+        with open(logp) as f:
+            text = f.read()
+        for fn, stack, regs in ptxas_entries(text):
+            log(f"[build] {name}: {fn}: {stack} bytes stack frame, "
+                f"{regs} registers")
+            # K2's register file lives in shared memory, none in local
+            if name == "expr_vm" and stack:
+                fail(f"K2 entry {fn} has a {stack}-byte stack frame")
+        for line in text.splitlines():
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill" \
+                    not in line:
+                log(f"[build] {name}: {line.strip()}")
 
 
 def phase_sql_setup(args, captured, joins):
@@ -540,6 +577,134 @@ def phase_sql_setup(args, captured, joins):
     return dom, s, n, keys
 
 
+def vm_plan_text(prog):
+    """How the VM runs `prog`: rows per thread and shared bytes a block."""
+    from tidb_tpu_torch.ops.kernels import expr_vm
+    rpt, stage, shared = expr_vm.launch_plan(
+        prog.n_regs, len(prog.instrs), len(prog.ci), len(prog.cf))
+    staged = {expr_vm.STAGE_NONE: "nothing", expr_vm.STAGE_PROG: "the stream",
+              expr_vm.STAGE_ALL: "the stream and the constants"}[stage]
+    return (f"{rpt} rows a thread, {shared} shared bytes a block ({staged} "
+            f"staged)")
+
+
+def k1_mode_text(c, keys, vals):
+    """Where K1's buckets live for one call (the accumulate's mode)."""
+    from tidb_tpu_torch.ops.kernels import groupby_agg as gb
+    stride = gb.slot_layout(tuple(c["agg_ops"]))[0]
+    pack = c["pack"]
+    bits = sum(b for b, _o in pack) if pack is not None else None
+    hashed = bits is None or bits > gb.BUCKET_BITS
+    S = (1 << bits) if not hashed else None
+    mode, smem = gb.accumulate_mode(S or 0, stride, hashed)
+    name = {gb.MODE_WARP: "a copy per warp", gb.MODE_BLOCK: "one per block",
+            gb.MODE_GLOBAL: "the workspace"}[mode]
+    return f"slots of {stride} words, buckets in {name} ({smem} shared bytes)"
+
+
+#: the wide K2 case's register count (the VM's limit is 64)
+WIDE_REGS = 64
+
+
+def wide_program(n_regs):
+    """A program of `n_regs` registers: the right-nested product of
+    distinct terms of input slot 0 (slot 0 * (i + 2) + i), which keeps
+    one value per term live until the innermost product."""
+    from tidb_tpu_torch.ops.kernels import expr_vm as ev
+    a = ev.load(0, "i")
+    for depth in range(1, 2 * n_regs + 2):
+        terms = [ev.arith("add", ev.mulk(a, i + 2), ev.const(i, "i"))
+                 for i in range(depth + 1)]
+        e = terms[-1]
+        for t in reversed(terms[:-1]):
+            e = ev.arith("mul", t, e)
+        prog = ev.Program.build([], [], [(e, "raw")])
+        if prog.n_regs == n_regs:
+            return prog
+    fail(f"no chain takes {n_regs} registers")
+
+
+def vm_wide(c, dev):
+    """K2 on a program of WIDE_REGS registers over one int64 column of
+    Q1's rows against its interpreter (exact), timed beside its bound."""
+    import torch
+    from tidb_tpu_torch.ops.kernels import expr_vm
+    prog = wide_program(WIDE_REGS)
+    col = next(inp[:2] for inp in c["inputs"]
+               if inp[0].dtype == torch.int64)
+    n, n_live = c["n"], c["n_live"]
+
+    def run_k():
+        return expr_vm.run(prog, [col], n, n_live, dev)
+
+    def run_p():
+        return expr_vm.interpret(prog, [col], n, n_live, dev)
+    out_k = run_k()
+    compare_vm(out_k, run_p(), "wide program")
+    ms, plain_ms = cuda_ms(run_k), cuda_ms(run_p)
+    bound = (nbytes(list(col)) + nbytes([out_k[0]] + list(out_k[1][0]))) \
+        / HBM_BYTES_PER_S * 1e3
+    split = call_split(run_k)
+    log(f"[K2] wide program: {len(prog.instrs)} instructions, "
+        f"{prog.n_regs} registers, n={n}: exact; {ms:.3f} ms (plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms); {split_text(split)}; "
+        f"{vm_plan_text(prog)}")
+    return dict(ms_wide=ms, plain_ms_wide=plain_ms, bound_ms_wide=bound)
+
+
+#: K1's mid-size slot spaces: Q1's aggregates (slots of 20 words) over
+#: 2^7, 2^8 and 2^9 uniform groups, 20, 40 and 80 KB a copy — past a copy
+#: per warp, within one copy per block
+MID_GROUP_BITS = (7, 8, 9)
+
+
+def k1_mid_groups(c, dev, rng):
+    """K1 on Q1's values and aggregates under a uniform key of each of
+    MID_GROUP_BITS, held to its plain version, timed in the mode
+    accumulate_mode picks and with the buckets forced into the workspace
+    (global atomics)."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from tidb_tpu_torch.ops.kernels import groupby_agg as gb
+    mask, outs = c["vm_out"]
+    prog, ops = c["prog"], c["agg_ops"]
+    vals = tuple(outs[s][0] for s in prog.val_slots)
+    vnulls = tuple(outs[s][1] for s in prog.val_slots)
+    n = mask.shape[0]
+    stride = gb.slot_layout(tuple(ops))[0]
+    names = {gb.MODE_WARP: "a copy per warp", gb.MODE_BLOCK: "one copy per "
+             "block", gb.MODE_GLOBAL: "the workspace"}
+    row = {}
+    for bits in MID_GROUP_BITS:
+        S = 1 << bits
+        key = torch.from_numpy(rng.integers(0, S, n)).to(dev)
+        argv = ((key,), (torch.zeros_like(mask),), vals, vnulls, mask, 1,
+                ops, S, ((bits, -1),))
+        want = gb.groupby_plain(*argv)
+        mode = gb.accumulate_mode(S, stride, False)[0]
+        times, err = {}, 0.0
+        for forced in (None, gb.MODE_GLOBAL):
+            ctx = (mock.patch.object(gb, "accumulate_mode",
+                                     lambda *_a, f=forced: (f, 0))
+                   if forced is not None else contextlib.nullcontext())
+            with ctx:
+                got = gb.groupby_agg(*argv)
+                torch.cuda.synchronize()
+                err = max(err, compare_agg(got, want, ops, S,
+                                           f"{S} uniform groups"))
+                times[forced] = cuda_ms(lambda: gb.groupby_agg(*argv))
+        log(f"[K1] q1's aggregates over {S} uniform groups ({S * stride * 8}"
+            f" bytes of slots): max abs err {err:.3g}; {names[mode]} "
+            f"{times[None]:.3f} ms, the workspace forced "
+            f"{times[gb.MODE_GLOBAL]:.3f} ms")
+        row[f"ms_mid_{S}"] = times[None]
+        row[f"ms_mid_{S}_workspace"] = times[gb.MODE_GLOBAL]
+        row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+    return row
+
+
 def phase_kernels(args, captured, report):
     import numpy as np
     import torch
@@ -575,15 +740,20 @@ def phase_kernels(args, captured, report):
         written = [out_k[0]] + [t for s, pair in enumerate(out_k[1])
                                 if s not in handed for t in pair]
         bound = (nbytes(read) + nbytes(written)) / HBM_BYTES_PER_S * 1e3
+        split = call_split(run_k)
         log(f"[K2] {name}: {len(launched.instrs)} instructions, "
             f"{launched.n_regs} registers, reads {len(read) // 2} of "
             f"{len(inputs)} input columns, hands on {len(handed)}, "
             f"n={n}: exact; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{bound:.4f} ms)")
+            f"{bound:.4f} ms); {split_text(split)}; {vm_plan_text(launched)}")
         c["vm_out"] = out_k
         if name == "q1":
             vm_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound)
+                          bound_ms=bound, device_ms=split[0],
+                          device_ops_per_call=split[1], host_ms=split[2])
+        else:
+            vm_row[f"ms_{name}"] = ms
+    vm_row.update(vm_wide(captured["q1"], dev))
     report["expr_vm"].update(vm_row)
 
     # -- K1 on the main path's inputs ----------------------------------------
@@ -610,16 +780,42 @@ def phase_kernels(args, captured, report):
                        + [mask]) + nbytes(
             [t for grp in out_k[:4] for t in grp])
         bound = moved / HBM_BYTES_PER_S * 1e3
+        split = call_split(lambda: groupby_agg.groupby_agg(*argv))
         log(f"[K1] {name}: n={c['n']}, {len(c['agg_ops'])} aggregates, "
             f"capacity {cap}, pack {c['pack']}, n_groups {int(out_k[4])}: "
             f"max abs err {err:.3g}; {ms:.3f} ms (plain {plain_ms:.3f} ms, "
-            f"bound {bound:.4f} ms)")
+            f"bound {bound:.4f} ms); {split_text(split)}; "
+            f"{k1_mode_text(c, keys, vals)}")
         if name == "q1":
             k1_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound)
+                          bound_ms=bound, device_ms=split[0],
+                          device_ops_per_call=split[1], host_ms=split[2])
+            # the hot group: Q1's rows with every key 0, one group, so
+            # each warp's 32 lanes fall in one bucket
+            hot = tuple(torch.zeros_like(k) for k in keys)
+            hot_nulls = tuple(torch.zeros_like(k) for k in knulls)
+            hargv = (hot, hot_nulls) + argv[2:]
+            out_k = groupby_agg.groupby_agg(*hargv)
+            out_p = groupby_agg.groupby_plain(*hargv)
+            torch.cuda.synchronize()
+            herr = compare_agg(out_k, out_p, c["agg_ops"], cap, "hot group")
+            if int(out_k[4]) != 1:
+                fail(f"K1 hot group: {int(out_k[4])} groups, not 1")
+            hms = cuda_ms(lambda: groupby_agg.groupby_agg(*hargv))
+            hplain = cuda_ms(lambda: groupby_agg.groupby_plain(*hargv))
+            log(f"[K1] q1 with every key 0 (one hot group): max abs err "
+                f"{herr:.3g}; {hms:.3f} ms (plain {hplain:.3f} ms)")
+            k1_row.update(max_abs_err=max(err, herr), ms_hot=hms,
+                          plain_ms_hot=hplain)
+        else:
+            k1_row[f"ms_{name}"] = ms
 
     # -- K1 on seeded cases covering the contract -----------------------------
+    mid = k1_mid_groups(captured["q1"], dev,
+                        np.random.default_rng(args.seed + 1))
     rng = np.random.default_rng(args.seed)
+    mid["max_abs_err"] = max(mid["max_abs_err"], k1_row["max_abs_err"])
+    k1_row.update(mid)
     n = captured["q1"]["n"]
 
     def up(a):
@@ -729,8 +925,9 @@ def k4_split(spec, n, ng, call_ms, report):
     layout and the launches."""
     from tidb_tpu_torch.ops.kernels import sort_topk
     cols, nulls, descs, nfs = spec
-    parts = device_ms_by_kernel(lambda: sort_topk._sort_cuda(
-        cols, nulls, descs, nfs, n, ng))
+    parts = {k: v[0] for k, v in device_profile(
+        lambda: sort_topk._sort_cuda(cols, nulls, descs, nfs, n,
+                                     ng)).items()}
     dev_ms = sum(parts.values())
     names = ", ".join(f"{k.split('(')[0]} {v:.3f} ms"
                       for k, v in sorted(parts.items(), key=lambda t: -t[1]))
@@ -922,12 +1119,16 @@ def phase_join_kernels(args, joins, keys, report):
     from tidb_tpu_torch.executor.device_join import _VALID
     valid_rows = int(inputs[prog.in_cols.index(_VALID)][0].sum())
     bound = vm_bound_ms(prog, inputs, out_k, valid_rows)
+    split = call_split(vm_k)
     log(f"[K2] q3 post-join: {len(prog.instrs)} instructions, reads "
         f"{len(expr_vm.gathered_slots(inputs))} of {len(inputs)} inputs "
         f"through a row index, n={n}, {valid_rows} valid rows: exact; "
-        f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound:.4f} ms)")
-    report["expr_vm_loadg"].update(dict(max_abs_err=0.0, ms=ms,
-                                        plain_ms=plain_ms, bound_ms=bound))
+        f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound:.4f} ms); "
+        f"{split_text(split)}; {vm_plan_text(prog)}")
+    report["expr_vm_loadg"].update(dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        device_ms=split[0], device_ops_per_call=split[1],
+        host_ms=split[2]))
 
     # -- K5b: orders expanded into lineitem at SF1 ----------------------------
     rng = np.random.default_rng(args.seed)
@@ -1597,10 +1798,11 @@ def is_k4_kernel(name):
     return name.split("(")[0].split("<")[0].split()[-1].startswith("sk_")
 
 
-def device_ms_by_kernel(fn, calls=10):
-    """Device milliseconds of each kernel and copy one call of `fn`
-    launches: torch.profiler over `calls` calls after a warm-up call,
-    averaged (the profiler can drop the first launch of its window)."""
+def device_profile(fn, calls=10):
+    """{name: (device ms, operations)} of the kernels, fills and copies one
+    call of `fn` runs: torch.profiler over `calls` calls after a warm-up
+    call, averaged (the profiler can drop the first launch of its
+    window)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1615,8 +1817,38 @@ def device_ms_by_kernel(fn, calls=10):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
-            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / calls
+            ms, ops = out.get(e.key, (0.0, 0.0))
+            out[e.key] = (ms + us / 1e3 / calls, ops + e.count / calls)
     return out
+
+
+def host_issue_ms(fn, calls=20):
+    """The host's milliseconds to issue one call of `fn`: a synchronise
+    before each call, none inside it (the mean of `calls`)."""
+    import torch
+    fn()
+    total = 0.0
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / calls * 1e3
+
+
+def call_split(fn):
+    """One call of `fn` split: (device ms, device operations — kernels,
+    fills and copies — per call, host ms to issue it)."""
+    prof = device_profile(fn)
+    return (sum(v[0] for v in prof.values()),
+            sum(v[1] for v in prof.values()), host_issue_ms(fn))
+
+
+def split_text(split):
+    dev_ms, ops, host = split
+    return (f"device {dev_ms:.3f} ms in {ops:g} operations a call, host "
+            f"issue {host:.3f} ms")
 
 
 def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
@@ -2446,11 +2678,14 @@ def check_merge(name, call):
     moved = live * slot + 8 * len(parts) + merge_cap * (slot + 1) + 8
     bound = moved / HBM_BYTES_PER_S * 1e3
     caps = sorted({int(p[0][0].shape[0]) for p in parts})
+    split = call_split(lambda: merge_states.merge(*call))
     log(f"[merge] {name}: {len(parts)} parts (capacities {caps}), {live} "
         f"live slots -> {int(out_k[4])} groups in {merge_cap} slots, "
         f"pack {pack}: max abs err {err:.3g}; {ms:.3f} ms (plain "
-        f"{plain_ms:.3f} ms, bound {bound:.4f} ms)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms); {split_text(split)}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                device_ms=split[0], device_ops_per_call=split[1],
+                host_ms=split[2])
 
 
 def phase_sf10(args, dom, rate, report):
@@ -2488,13 +2723,14 @@ def phase_sf10(args, dom, rate, report):
             _r, dt, _m, _runs = run_streamed(s, "sf10", name, sqls[name],
                                              counters)
         log(f"[sf10] warm-up {name}: {dt:.3f} s")
-    merge_row = None
-    for name in ("q1", "q18"):
-        row = check_merge(f"sf10 {name}", folds.pop(name))
-        if merge_row is None or row["bound_ms"] > merge_row["bound_ms"]:
-            merge_row = dict(row, max_abs_err=max(
-                row["max_abs_err"],
-                merge_row["max_abs_err"] if merge_row else 0.0))
+    rows = {name: check_merge(f"sf10 {name}", folds.pop(name))
+            for name in ("q1", "q18")}
+    # the row of the larger fold (Q18's), with Q1's many small parts
+    # beside it
+    merge_row = dict(max(rows.values(), key=lambda r: r["bound_ms"]),
+                     max_abs_err=max(r["max_abs_err"] for r in rows.values()))
+    merge_row.update({f"{k}_q1": rows["q1"][k] for k in (
+        "ms", "plain_ms", "device_ms", "device_ops_per_call", "host_ms")})
     report["merge_states"].update(merge_row)
     torch.cuda.empty_cache()
 
@@ -2889,7 +3125,17 @@ def main(argv=None) -> int:
              "library_ms_sf10_w2_packed", "ms_one_key", "library_ms_one_key",
              "ms_join_sort", "join_sort_bound_ms", "library_ms_join_sort",
              "window_order_device_ms", "window_order_host_ms",
-             "passes", "bits_per_word")
+             "passes", "bits_per_word",
+             # K1, K2 and the fold: one call's device time, device
+             # operations and host issue time; K2 at its other shapes and
+             # on the wide program, K1 at the top-N and the hot group
+             "device_ms", "device_ops_per_call", "host_ms", "ms_q6",
+             "ms_topn", "ms_wide", "plain_ms_wide", "bound_ms_wide",
+             "ms_hot", "plain_ms_hot", "ms_q1", "plain_ms_q1",
+             "device_ms_q1", "device_ops_per_call_q1", "host_ms_q1",
+             # K1 over mid-size slot spaces, and with the workspace forced
+             *(f"ms_mid_{1 << b}{w}" for b in MID_GROUP_BITS
+               for w in ("", "_workspace")))
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report.values()]}))

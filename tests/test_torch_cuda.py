@@ -675,3 +675,330 @@ def test_dist_steps_on_the_card_match_the_cpu(dev):
     for x, y in zip(a[1], b[1]):
         assert torch.equal(x[:ng], y[:ng])
     assert [int(x) for x in a[5:]] == [int(x) for x in b[5:]]
+
+
+# -- K2 and K1 at the edges of their Hopper designs ---------------------------
+# (the helpers below take no card: tests/test_torch_vm_agg.py runs the same
+# shapes through the plain versions against the reference on the CPU)
+
+def vm_chain(depth):
+    """A program whose evaluation keeps about `depth` values live: the
+    right-nested product t_0 * (t_1 * (... t_depth)), each t_i a distinct
+    term (slot 0 times i + 2, plus i), NEG of slot 0 for depth 0."""
+    ev = expr_vm
+    a = ev.load(0, "i")
+    if depth == 0:
+        return ev.Program.build([], [], [(ev.unary("NEG_I", a), "raw")])
+    terms = [ev.arith("add", ev.mulk(a, i + 2), ev.const(i, "i"))
+             for i in range(depth + 1)]
+    e = terms[-1]
+    for t in reversed(terms[:-1]):
+        e = ev.arith("mul", t, e)
+    return ev.Program.build([], [], [(e, "raw")])
+
+
+def vm_chain_with_regs(n_regs):
+    """The chain of :func:`vm_chain` that takes exactly `n_regs`
+    registers."""
+    for depth in range(0, 2 * n_regs + 2):
+        prog = vm_chain(depth)
+        if prog.n_regs == n_regs:
+            return prog
+    raise AssertionError(f"no chain takes {n_regs} registers")
+
+
+#: the every-opcode program's input dtypes, slot by slot; slot 7 is read
+#: through a row index (LOADG)
+EVERY_OP_DTYPES = (np.int64, np.int32, np.float64, np.float32, np.bool_,
+                   np.int16, np.int8, np.int64)
+
+
+def vm_every_op():
+    """A program that runs every opcode of the VM at least once: a load of
+    each input dtype, constants (one NULL), every ALU op, two mask
+    conditions, a key and values."""
+    ev, Node = expr_vm, expr_vm.Node
+    a, b, f, g, u, h, c, j = (ev.load(s, "f" if dt in (np.float64, np.float32)
+                                      else "i")
+                              for s, dt in enumerate(EVERY_OP_DTYPES))
+    lt = ev.cmp("lt", a, b)
+    gt = ev.cmp("gt", f, g)
+    tr = ev.unary("TRUTHY", u, kind="i")
+    vals = [
+        ev.to_f(a), ev.to_i(f), ev.mulk(a, 3), ev.divkf(f, 4.0),
+        ev.arith("add", a, b), ev.arith("sub", a, j), ev.arith("mul", b, h),
+        ev.arith("add", f, g), ev.arith("sub", f, ev.const(0.5, "f")),
+        ev.arith("mul", g, f), lt, gt,
+        ev.binary("DIV_F", f, g, kind="f"),
+        ev.binary("DIV_DEC", a, h, imm=100),
+        ev.binary("AND", lt, gt), ev.binary("OR", lt, gt),
+        ev.unary("NOT", lt), ev.unary("ISNULL", a, kind="i"),
+        ev.unary("NEG_I", a), ev.unary("NEG_F", f), ev.unary("ABS_I", b),
+        ev.unary("ABS_F", g),
+        ev.in_table(c, np.array([-3, 0, 5], dtype=np.int64), True),
+        ev.in_table(f, np.array([0.0, 1.5]), False),
+        Node("NZ_F", (g,), None, "i"),
+        ev.binary("BAND", tr, lt), ev.binary("BOR", tr, gt),
+        ev.unary("BNOT", tr), ev.sel(gt, a, j, "i"),
+        ev.binary("COALESCE", a, ev.const(7, "i"), kind="i"),
+        Node("CIVIL", (h,), 1, "i"), Node("FLOORDIVK", (a,), 7, "i"),
+        ev.lut(u, np.array([10, 20], dtype=np.int64)),
+        ev.lut(c, np.array([0.5, 1.5, 2.5])),
+        ev.lutn(c, np.array([1, 2, 3, 4], dtype=np.int64),
+                np.array([0, 0, 1, 0])),
+        ev.lutn(u, np.array([0.25, 0.75, 9.0]), np.array([0, 1, 1])),
+        Node("ROUNDDIVK", (a,), 100, "i"), Node("RINT", (f,), None, "i"),
+        ev.arith("add", a, ev.null_const("i")),
+    ]
+    return ev.Program.build([lt, tr], [ev.to_i(g)],
+                            [(v, "raw") for v in vals])
+
+
+def vm_every_op_inputs(prog, rng, n, gather=("idx", "ext")):
+    """Seeded numpy inputs of :func:`vm_every_op` in the program's input
+    slot order: (data, nulls) per column, column 7 (data, nulls, idx, ext)
+    over a relation of n // 3 + 1 rows."""
+    ins = []
+    for s, dt in enumerate(EVERY_OP_DTYPES):
+        rows = n // 3 + 1 if s == 7 else n
+        if dt in (np.float64, np.float32):
+            d = np.round(rng.standard_normal(rows) * 100, 1).astype(dt)
+            d[rng.random(rows) < 0.05] = 0.0
+        elif dt is np.bool_:
+            d = rng.random(rows) < 0.5
+        else:
+            lo, hi = {np.int8: (-5, 6), np.int16: (-2000, 20000)}.get(
+                dt, (-10**6, 10**6))
+            d = rng.integers(lo, hi, rows).astype(dt)
+        ins.append([d, rng.random(rows) < 0.1])
+    ins[7] += [rng.integers(0, n // 3 + 1, n) if "idx" in gather else None,
+               rng.random(n) < 0.1 if "ext" in gather else None]
+    if ins[7][2] is None:  # no row index: the relation is the row space
+        ins[7][:2] = [rng.integers(-10**6, 10**6, n), rng.random(n) < 0.1]
+    return [tuple(ins[col]) for col in prog.in_cols]
+
+
+def _vm_same(got, want):
+    (mk, ok), (mp, op) = got, want
+    assert torch.equal(mk.cpu(), mp.cpu())
+    for s, ((a, an), (b, bn)) in enumerate(zip(ok, op)):
+        assert torch.equal(an.cpu(), bn.cpu()), s
+        a, b = a.cpu(), b.cpu()
+        if a.is_floating_point():
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        assert torch.equal(a, b), s
+
+
+def _vm_on(dev, ins):
+    return [tuple(None if x is None else _up(x, dev) for x in inp)
+            for inp in ins]
+
+
+@pytest.mark.parametrize("n_regs", [1, 8, 64])
+@pytest.mark.parametrize("n,live", [(100_003, "all"), (100_003, "none"),
+                                    (100_003, "half"), (7, "all"),
+                                    (2048 * 5, "half")])
+def test_expr_vm_register_chain_matches_interpreter(dev, n_regs, n, live):
+    """Programs of 1, 8 and 64 registers (the register file sized to the
+    program, rows per thread from 4 down to 1), n below a warp, not a
+    multiple of a tile and a whole number of tiles, n_live 0, n / 2, n."""
+    prog = vm_chain_with_regs(n_regs)
+    rng = np.random.default_rng(n_regs * 7 + n)
+    ins = _vm_on(dev, [(rng.integers(-1000, 1000, n), rng.random(n) < 0.1)])
+    n_live = {"all": n, "none": 0, "half": n // 2}[live]
+    got = expr_vm.run(prog, ins, n, n_live, dev)
+    want = expr_vm.interpret(prog, ins, n, n_live, dev)
+    torch.cuda.synchronize()
+    _vm_same(got, want)
+    assert not bool(got[0][n_live:].any())
+
+
+@pytest.mark.parametrize("gather", [("idx", "ext"), ("idx",), ("ext",)],
+                         ids=["idx+ext", "idx", "ext"])
+@pytest.mark.parametrize("n", [5, 65_537])
+def test_expr_vm_every_opcode_matches_interpreter(dev, gather, n):
+    prog = vm_every_op()
+    rng = np.random.default_rng(n + len(gather))
+    ins = _vm_on(dev, vm_every_op_inputs(prog, rng, n, gather))
+    before = expr_vm.LAUNCHES[0]
+    for n_live in (n, n - 2, 0):
+        _vm_same(expr_vm.run(prog, ins, n, n_live, dev),
+                 expr_vm.interpret(prog, ins, n, n_live, dev))
+    torch.cuda.synchronize()
+    assert expr_vm.LAUNCHES[0] == before + 3
+
+
+@pytest.mark.parametrize("rpt", [1, 2, 4])
+def test_expr_vm_rows_per_thread_agree(dev, rpt, monkeypatch):
+    """Every tile shape gives the interpreter's bits (the plan forced to
+    `rpt` rows per thread)."""
+    plan = expr_vm.launch_plan
+    monkeypatch.setattr(expr_vm, "launch_plan",
+                        lambda *a, **k: plan(*a, rpt=rpt))
+    prog = vm_every_op()
+    n = 30_001
+    ins = _vm_on(dev, vm_every_op_inputs(prog, np.random.default_rng(rpt),
+                                         n))
+    _vm_same(expr_vm.run(prog, ins, n, n - 5, dev),
+             expr_vm.interpret(prog, ins, n, n - 5, dev))
+
+
+def vm_long_program(n_terms):
+    """A program of about 4 * n_terms instructions in few registers: the
+    balanced sum of n_terms distinct terms (slot 0 * (i + 2) + i)."""
+    ev = expr_vm
+    a = ev.load(0, "i")
+    terms = [ev.arith("add", ev.mulk(a, i + 2), ev.const(i, "i"))
+             for i in range(n_terms)]
+    while len(terms) > 1:
+        terms = [ev.arith("add", *terms[i:i + 2]) if i + 1 < len(terms)
+                 else terms[i] for i in range(0, len(terms), 2)]
+    return ev.Program.build([], [], [(terms[0], "raw")])
+
+
+#: a program of about 1,100 instructions (staged in shared memory) and one
+#: too long for shared memory beside its register file
+LONG_TERMS, PAST_SHARED_TERMS = 275, 1_700
+
+
+def _vm_long_run(dev, prog, n):
+    rng = np.random.default_rng(len(prog.instrs))
+    ins = _vm_on(dev, [(rng.integers(-1000, 1000, n), rng.random(n) < 0.1)])
+    _vm_same(expr_vm.run(prog, ins, n, n - 3, dev),
+             expr_vm.interpret(prog, ins, n, n - 3, dev))
+
+
+@pytest.mark.parametrize("stage", [expr_vm.STAGE_NONE, expr_vm.STAGE_PROG,
+                                   expr_vm.STAGE_ALL])
+def test_expr_vm_long_program_matches_interpreter(dev, stage, monkeypatch):
+    """A program of about 1,100 instructions gives the interpreter's bits
+    with the stream and the constants in shared memory or read from
+    device memory (the plan forced to each stage)."""
+    prog = vm_long_program(LONG_TERMS)
+    assert 1_050 <= len(prog.instrs) <= 1_150
+    plan = expr_vm.launch_plan
+
+    def forced(n_regs, n_instr, n_ci, n_cf, rpt=None):
+        rpt = plan(n_regs, n_instr, n_ci, n_cf, rpt)[0]
+        shared = (n_regs * expr_vm.VM_THREADS * rpt * 9
+                  + (stage > 0) * n_instr * 32
+                  + (stage > 1) * 8 * (n_ci + n_cf))
+        return rpt, stage, shared
+    monkeypatch.setattr(expr_vm, "launch_plan", forced)
+    _vm_long_run(dev, prog, 100_003)
+
+
+def test_expr_vm_program_past_shared_memory_matches_interpreter(dev):
+    """A stream too long for shared memory is read from device memory."""
+    prog = vm_long_program(PAST_SHARED_TERMS)
+    assert expr_vm.launch_plan(prog.n_regs, len(prog.instrs), len(prog.ci),
+                               len(prog.cf))[1] == expr_vm.STAGE_NONE
+    _vm_long_run(dev, prog, 30_001)
+
+
+#: the accumulate's modes (groupby_agg.accumulate_mode) and a pack that
+#: takes each with the edge cases' aggregates
+K1_PATHS = {"warp": ((3, 0), (2, 0)), "block": ((6, 0), (2, 0)),
+            "global": ((12, 0), (2, 0)), "hash": None}
+K1_OPS = ("count", "sum_i", "sum_f", "min", "max", "min", "max", "first",
+          "cnt_dist", "sum_i")
+_SPECIAL_F = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.5, -2.5])
+
+
+def k1_edge_case(case, n, rng):
+    """(keys, knulls, vals, vnulls, mask) numpy inputs of one K1 edge case
+    for K1_OPS over two keys (key 0 below 7, key 1 below 3): "one_group"
+    (every kept row in one group), "warp_bucket" (each aligned run of 32
+    rows in one group), "nan_inf_zero" (NaN, +-inf, +-0.0 under min and
+    max), "wrap" (int64 sums past 2^63), "distinct" (count distinct over
+    few values beside the other aggregates)."""
+    k0, k1 = rng.integers(0, 7, n), rng.integers(0, 3, n)
+    kn = [rng.random(n) < 0.02, np.zeros(n, bool)]
+    vi = rng.integers(-10**6, 10**6, n)
+    vf = rng.standard_normal(n)
+    vd = rng.integers(0, 1000, n)
+    mask = rng.random(n) < 0.9
+    if case == "one_group":
+        k0, k1 = np.full(n, 4), np.full(n, 1)
+        kn = [np.zeros(n, bool)] * 2
+        mask = np.ones(n, bool)
+    elif case == "warp_bucket":
+        run = np.arange(n) // 32
+        k0, k1 = run % 7, (run // 7) % 3
+        mask = np.ones(n, bool)
+    elif case == "nan_inf_zero":
+        vf = rng.choice(_SPECIAL_F, n, p=[.02, .1, .1, .29, .29, .1, .1])
+    elif case == "wrap":
+        vi = rng.integers(2**62, 2**63 - 1, n, dtype=np.int64)
+        vi[rng.random(n) < 0.3] *= -1
+    elif case == "distinct":
+        vd = rng.integers(0, 5, n)
+    vals = (vi, vi, vf, vi, vi, vf, vf, vi, vd, vi)
+    vnulls = tuple(rng.random(n) < 0.05 for _ in K1_OPS)
+    return (k0, k1), tuple(kn), vals, vnulls, mask
+
+
+def k1_same(got, want, ops, cap):
+    """K1's contract: n_groups, valid, keys, NULL flags and integers
+    exact, floats within rtol 1e-9 / atol 1e-12 (NaN equal to NaN)."""
+    ng = int(got[4])
+    assert ng == int(want[4])
+    lim = min(ng, cap)
+    assert torch.equal(got[5].cpu(), want[5].cpu())
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a[:lim].cpu(), b[:lim].cpu())
+    for j, op in enumerate(ops):
+        assert torch.equal(got[3][j][:lim].cpu(), want[3][j][:lim].cpu()), op
+        live = ~got[3][j][:lim].cpu()
+        a, b = got[2][j][:lim].cpu()[live], want[2][j][:lim].cpu()[live]
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(a, b), op
+
+
+@pytest.mark.parametrize("path", list(K1_PATHS))
+@pytest.mark.parametrize("case", ["one_group", "warp_bucket", "nan_inf_zero",
+                                  "wrap", "distinct"])
+def test_groupby_edges_match_plain(dev, path, case):
+    pack = K1_PATHS[path]
+    if pack is not None:
+        stride = groupby_agg.slot_layout(K1_OPS)[0]
+        mode = groupby_agg.accumulate_mode(1 << sum(b for b, _ in pack),
+                                           stride, False)[0]
+        assert mode == {"warp": groupby_agg.MODE_WARP,
+                        "block": groupby_agg.MODE_BLOCK,
+                        "global": groupby_agg.MODE_GLOBAL}[path]
+    n = 70_001
+    keys, kn, vals, vn, mask = k1_edge_case(
+        case, n, np.random.default_rng(len(case) * 31 + len(path)))
+    up = [tuple(_up(a, dev) for a in grp) for grp in (keys, kn, vals, vn)]
+    cap = 64
+    args = (*up, _up(mask, dev), 2, K1_OPS, cap, pack)
+    before = groupby_agg.LAUNCHES[0]
+    got = groupby_agg.groupby_agg(*args)
+    want = groupby_agg.groupby_plain(*args)
+    torch.cuda.synchronize()
+    assert groupby_agg.LAUNCHES[0] == before + 1
+    if case == "one_group":
+        assert int(got[4]) == 1
+    k1_same(got, want, K1_OPS, cap)
+    # every slot past n_groups is zero and not valid
+    ng = min(int(got[4]), cap)
+    for t in got[0] + got[1] + got[2] + got[3]:
+        assert not t[ng:].cpu().view(torch.uint8).any()
+
+
+@pytest.mark.parametrize("pack", [((7, 0), (2, 0)), None],
+                         ids=["pack", "hash"])
+def test_merge_states_of_many_small_parts(dev, pack):
+    """A fold of 40 parts of a few hundred rows each (the streamed Q1's
+    shape, many parts with few live slots)."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    rng = np.random.default_rng(12)
+    parts, merge_ops = _k1_states(dev, rng, 40, pack, n=300)
+    k = merge_states.merge(parts, 2, merge_ops, 1 << 9, pack)
+    p = merge_states.merge_plain(parts, 2, merge_ops, 1 << 9, pack)
+    torch.cuda.synchronize()
+    k1_same(k, p, merge_ops, 1 << 9)

@@ -11,9 +11,12 @@ scales, dictionary remaps, string LUTs, sorted IN-lists.
 
 Two executors run the same program:
 
-* ``csrc/expr_vm.cu`` (CUDA tensors): one thread per row in a grid-stride
-  loop, switching on opcodes; an output that is an input column unchanged
-  is handed on as that column, not copied (:func:`handed_on`);
+* ``csrc/expr_vm.cu`` (CUDA tensors): persistent blocks walk tiles of
+  rows; each thread decodes an instruction once per tile and applies it
+  to several rows, over a register file sized to the program in shared
+  memory (:func:`launch_plan`), its arguments by value
+  (:func:`pack_args`); an output that is an input column unchanged is
+  handed on as that column, not copied (:func:`handed_on`);
 * :func:`interpret` (CPU tensors, and the reference the card's kernel is
   held to): the program run instruction by instruction on whole columns.
 
@@ -55,6 +58,43 @@ CMP_CODES = {"eq": 0, "ne": 1, "lt": 2, "le": 3, "gt": 4, "ge": 5}
 #: registers per thread in the CUDA VM (csrc/expr_vm.cu MAX_REGS)
 MAX_REGS = 64
 INSTR_W = 8
+#: csrc/expr_vm.cu VM_THREADS, VM_MAX_IN, VM_MAX_OUT: threads per block,
+#: and the input and output slots the by-value arguments hold
+VM_THREADS = 256
+MAX_IN = 64
+MAX_OUT = 64
+#: dynamic shared memory one block may use on Hopper
+SHARED_LIMIT = 232_448
+#: rows per thread, most first; a tile takes the most whose registers
+#: (8 value bytes and a null byte per register and row) fit REG_BUDGET,
+#: so four blocks share an SM's 228 KB
+ROWS_PER_THREAD = (4, 2, 1)
+REG_BUDGET = 56 * 1024
+#: csrc/expr_vm.cu expr_vm_kernel's STAGE: what a block stages in shared
+#: memory beside the register file — nothing (the instruction stream, 32
+#: bytes an instruction, and the constant tables are read from device
+#: memory), the stream, or the stream and the constant tables
+STAGE_NONE, STAGE_PROG, STAGE_ALL = 0, 1, 2
+#: the constant tables are staged up to this size
+STAGE_CONST_MAX = 16 * 1024
+#: csrc/expr_vm.cu make_args: the header's layout (int64 words)
+HDR_IN = 16
+HDR_OUT = HDR_IN + 5 * MAX_IN
+HDR_LEN = HDR_OUT + 2 * MAX_OUT
+#: csrc/expr_vm.cu F_*: flag bits above the opcode in the kernel's stream
+F_A, F_B, F_C, F_WB = 1, 2, 4, 8
+#: operand count of each opcode (STORE and MASK read one, make none)
+_ARITY = dict.fromkeys(OPCODES, 1)
+_ARITY.update(dict.fromkeys(("LOAD", "LOADG", "CONST"), 0))
+_ARITY.update(dict.fromkeys((
+    "ADD_I", "SUB_I", "MUL_I", "ADD_F", "SUB_F", "MUL_F", "CMP_I", "CMP_F",
+    "DIV_F", "DIV_DEC", "AND", "OR", "BAND", "BOR", "COALESCE"), 2))
+_ARITY["SEL"] = 3
+_SINKS = ("STORE", "MASK")
+#: ops whose rows the kernel runs one at a time on the register file (they
+#: call the device's division routines): their operands and result never
+#: pass through the forwarded last result
+_SERIAL = ("DIVKF", "DIV_F", "DIV_DEC", "FLOORDIVK", "ROUNDDIVK")
 
 #: input dtype codes (csrc/expr_vm.cu load_in)
 DTYPE_CODES = {torch.int64: 0, torch.int32: 1, torch.float64: 2,
@@ -401,18 +441,50 @@ class Program:
                    (order, sinks), pass_in)
 
     def tables(self, device):
-        """(instrs, ci, cf) as tensors on `device`, uploaded once."""
+        """(the kernel's instruction stream (:func:`kernel_stream`), ci, cf)
+        as tensors on `device`, uploaded once."""
         key = str(device)
         t = self._dev.get(key)
         if t is None:
             t = self._dev[key] = (
-                torch.from_numpy(self.instrs.copy()).to(device),
+                torch.from_numpy(kernel_stream(self.instrs)).to(device),
                 torch.from_numpy(
                     self.ci if len(self.ci) else np.zeros(1, np.int64)
                 ).to(device),
                 torch.from_numpy(
                     self.cf if len(self.cf) else np.zeros(1)).to(device))
         return t
+
+
+def kernel_stream(instrs: np.ndarray) -> np.ndarray:
+    """The program as csrc/expr_vm.cu runs it: each opcode with flag bits
+    above it (``op | flags << 8``).  The kernel keeps the last result of
+    a non-sink instruction in registers: F_A / F_B / F_C mark an operand
+    that is that result, F_WB a result some later instruction reads from
+    the register file instead (a value only the next instruction, or the
+    sinks before it, read never touches shared memory).  An op of
+    _SERIAL reads its operands from, and writes its result to, the
+    register file, and leaves no last result."""
+    out = np.array(instrs, dtype=np.int32).reshape(-1, INSTR_W)
+    flags = np.zeros(len(out), dtype=np.int32)
+    producer = {}   # register -> position of the instruction it holds
+    last = None     # the register whose value is the last result
+    for q, ins in enumerate(out.tolist()):
+        name = OPCODES[ins[0]]
+        for j in range(_ARITY[name]):
+            reg = ins[2 + j]
+            if reg == last and name not in _SERIAL:
+                flags[q] |= (F_A, F_B, F_C)[j]
+            else:
+                flags[producer[reg]] |= F_WB
+        if name in _SINKS:
+            continue
+        producer[ins[1]] = q
+        last = None if name in _SERIAL else ins[1]
+        if name in _SERIAL:
+            flags[q] |= F_WB
+    out[:, 0] |= flags << 8
+    return out
 
 
 # -- the plain version --------------------------------------------------------
@@ -595,8 +667,53 @@ _FN = [None]
 def _kernel():
     if _FN[0] is None:
         from . import build
-        _FN[0] = build.declare("expr_vm_run", 11, int_args=(1, 4, 7, 8, 9))
+        _FN[0] = build.declare("expr_vm_run", 2)
     return _FN[0]
+
+
+def launch_plan(n_regs: int, n_instr: int, n_ci: int, n_cf: int,
+                rpt: int = None):
+    """How csrc/expr_vm.cu runs a program: (rows per thread, stage,
+    dynamic shared bytes per block).  The register file takes ``n_regs *
+    VM_THREADS * rpt * 9`` bytes; `rpt` is given, or the most of
+    ROWS_PER_THREAD within REG_BUDGET.  The instruction stream (32 bytes an
+    instruction) is staged where it fits beside the register file within
+    SHARED_LIMIT, and the constant tables after it where they are at most
+    STAGE_CONST_MAX and fit too; a stream that does not fit is read from
+    device memory, so a program of any length runs."""
+    if rpt is None:
+        rpt = next((r for r in ROWS_PER_THREAD
+                    if n_regs * VM_THREADS * r * 9 <= REG_BUDGET), 1)
+    regs = n_regs * VM_THREADS * rpt * 9
+    prog = regs + n_instr * INSTR_W * 4
+    const_b = 8 * (n_ci + n_cf)
+    if prog > SHARED_LIMIT:
+        return rpt, STAGE_NONE, regs
+    if const_b <= STAGE_CONST_MAX and prog + const_b <= SHARED_LIMIT:
+        return rpt, STAGE_ALL, prog + const_b
+    return rpt, STAGE_PROG, prog
+
+
+def pack_args(n, n_live, counts, plan, tables, mask, ins, outs):
+    """The int64 header csrc/expr_vm.cu ``make_args`` turns into the
+    kernel's by-value arguments.  counts: (n_instr, n_regs, n_ci, n_cf);
+    plan: :func:`launch_plan`'s; tables: the pointers of the instruction
+    stream and the two constant tables; mask: the mask's pointer; ins: per
+    input slot (data, nulls, dtype code, row index, null mask), pointers
+    0 where absent; outs: per output slot (data, nulls)."""
+    if len(ins) > MAX_IN or len(outs) > MAX_OUT:
+        from ..device import DeviceUnsupported
+        raise DeviceUnsupported(
+            f"expression program of {len(ins)} inputs and {len(outs)} "
+            f"outputs (the VM takes {MAX_IN} and {MAX_OUT})")
+    rpt, stage, shared = plan
+    hdr = np.zeros(HDR_LEN, dtype=np.int64)
+    hdr[:HDR_IN - 1] = ((n, n_live) + tuple(counts)
+                        + (rpt, stage, shared, len(ins), len(outs))
+                        + tuple(tables) + (mask,))
+    hdr[HDR_IN:HDR_IN + 5 * len(ins)] = [w for e in ins for w in e]
+    hdr[HDR_OUT:HDR_OUT + 2 * len(outs)] = [w for e in outs for w in e]
+    return hdr
 
 
 def handed_on(prog: Program, inputs) -> frozenset:
@@ -623,6 +740,7 @@ def run(prog: Program, inputs, n: int, n_live: int, dev: torch.device):
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     gathered = gathered_slots(inputs)
+    ins = []
     for s, inp in enumerate(inputs):
         d, nl = inp[:2]
         idx, ext = inp[2:] if len(inp) > 2 else (None, None)
@@ -648,40 +766,36 @@ def run(prog: Program, inputs, n: int, n_live: int, dev: torch.device):
             if t is not None and t.shape[0] != n:
                 raise ValueError("expr_vm: row index or null mask length "
                                  "differs from n")
+        ins.append((d.data_ptr(), nl.data_ptr(), DTYPE_CODES[d.dtype],
+                    0 if idx is None else idx.data_ptr(),
+                    0 if ext is None else ext.data_ptr()))
     skip = handed_on(prog, inputs)
     vprog = prog.without_stores(skip).gathered(gathered)
     instrs, ci, cf = vprog.tables(dev)
-    mask = torch.empty(n, dtype=torch.bool, device=dev)
-    outs = [tuple(inputs[prog.pass_in[s]][:2]) if s in skip else
-            (torch.empty(n, dtype=torch.float64 if k == "f"
-                         else torch.int64, device=dev),
-             torch.empty(n, dtype=torch.bool, device=dev))
-            for s, k in enumerate(prog.out_kinds)]
-    n_in, n_out = len(inputs), len(outs)
-    meta = np.zeros(5 * n_in + 2 * n_out + 1, dtype=np.int64)
-    for s, inp in enumerate(inputs):
-        d, nl = inp[:2]
-        meta[s] = d.data_ptr()
-        meta[n_in + s] = nl.data_ptr()
-        meta[2 * n_in + s] = DTYPE_CODES[d.dtype]
-        if s in gathered:
-            idx, ext = inp[2:]
-            meta[3 * n_in + s] = 0 if idx is None else idx.data_ptr()
-            meta[4 * n_in + s] = 0 if ext is None else ext.data_ptr()
-    base = 5 * n_in
-    for s, (d, nl) in enumerate(outs):
-        if s not in skip:
-            meta[base + s] = d.data_ptr()
-            meta[base + n_out + s] = nl.data_ptr()
-    meta_t = torch.from_numpy(meta).to(dev, non_blocking=False)
+    # the computed outputs' data in one buffer, their nulls and the mask
+    # in another
+    made = [s for s in range(len(prog.out_kinds)) if s not in skip]
+    data = torch.empty((len(made), n), dtype=torch.int64,
+                       device=dev).unbind(0)
+    flags = torch.empty((len(made) + 1, n), dtype=torch.bool,
+                        device=dev).unbind(0)
+    mask = flags[-1]
+    outs = [tuple(inputs[prog.pass_in[s]][:2]) if s in skip else None
+            for s in range(len(prog.out_kinds))]
+    for d, nl, s in zip(data, flags, made):
+        outs[s] = (d.view(torch.float64) if prog.out_kinds[s] == "f" else d,
+                   nl)
+    counts = (len(vprog.instrs), vprog.n_regs, len(vprog.ci), len(vprog.cf))
+    plan = launch_plan(vprog.n_regs, len(vprog.instrs), len(vprog.ci),
+                       len(vprog.cf))
+    hdr = pack_args(n, n_live, counts, plan,
+                    (instrs.data_ptr(), ci.data_ptr(), cf.data_ptr()),
+                    mask.data_ptr(), ins,
+                    [(0, 0) if s in skip else (d.data_ptr(), nl.data_ptr())
+                     for s, (d, nl) in enumerate(outs)])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _kernel()(instrs.data_ptr(), len(vprog.instrs), ci.data_ptr(),
-                   cf.data_ptr(), n_in, meta_t.data_ptr(),
-                   mask.data_ptr(), n_out, n, n_live,
-                   ctypes.c_void_p(stream))
     from . import build
-    build.check(rc, "expr_vm_run")
+    build.check(_kernel()(hdr.ctypes.data, ctypes.c_void_p(stream)),
+                "expr_vm_run")
     LAUNCHES[0] += 1
-    # the meta table must outlive the launch: keep it on the stream
-    meta_t.record_stream(torch.cuda.current_stream(dev))
     return mask, outs

@@ -12,12 +12,17 @@ Contract (``tidb_tpu/ops/device.py:1205 _agg_impl``), slot for slot:
   ``min(n_groups, capacity)`` are zero.
 
 :func:`groupby_agg` launches ``csrc/groupby_agg.cu`` for CUDA tensors and
-runs :func:`groupby_plain` for CPU tensors.
+runs :func:`groupby_plain` for CPU tensors.  On the card the slot state
+is one workspace (:func:`workspace_layout`), each slot's words together
+(:func:`slot_layout`), its buckets in shared memory where they fit
+(:func:`accumulate_mode`); the outputs are views of two buffers, every
+slot of which the emit kernel writes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -33,9 +38,19 @@ BUCKET_BITS = 26
 #: csrc/groupby_agg.cu GB_MAX_KEYS / GB_MAX_AGGS
 MAX_KEYS = 8
 MAX_AGGS = 32
-#: a block accumulates privately when its bucket table fits this much
-#: shared memory
-SHARED_BYTES = 48 * 1024
+#: csrc/groupby_agg.cu: where the buckets live while rows accumulate —
+#: a copy per warp in shared memory, one per block, or the workspace
+MODE_WARP, MODE_BLOCK, MODE_GLOBAL = 0, 1, 2
+GB_WARPS = 8
+#: shared memory for the warps' copies, and for a block's one copy
+WARP_COPIES_BYTES = 64 * 1024
+BLOCK_COPY_BYTES = 96 * 1024
+#: csrc/groupby_agg.cu SCAN_TILE: live slots a compaction block scans
+SCAN_TILE = 2048
+#: csrc/groupby_agg.cu make_args: the header's length (int64 words)
+HDR_LEN = 256
+_ACC_OPS = ("sum_i", "sum_f", "min", "max", "cnt_dist")
+_NN_OPS = ("count", "sum_i", "sum_f", "min", "max")
 
 #: launches of the CUDA kernel (chip_smoke.py reads it to prove the path)
 LAUNCHES = [0]
@@ -157,6 +172,57 @@ def _next_pow2(n):
     return p
 
 
+@functools.lru_cache(maxsize=256)
+def slot_layout(agg_ops):
+    """The words of one slot: word 0 its representative row, then per
+    aggregate an accumulator (sums, min, max, count distinct) and a
+    non-null count (count, sums, min, max) where it needs them.  Returns
+    (stride, acc word per aggregate, count word per aggregate), -1 where
+    none; the stride is 1, 2 or a multiple of 4 words, so a slot of at
+    most 4 words lies in one 32-byte sector."""
+    w, acc_w, nn_w = 1, [], []
+    for op in agg_ops:
+        acc_w.append(w if op in _ACC_OPS else -1)
+        w += op in _ACC_OPS
+        nn_w.append(w if op in _NN_OPS else -1)
+        w += op in _NN_OPS
+    return (w if w <= 2 else -(-w // 4) * 4), tuple(acc_w), tuple(nn_w)
+
+
+def accumulate_mode(S, stride, hashed):
+    """(mode, shared bytes) of the accumulate over S slots of `stride`
+    words: a copy per warp where GB_WARPS copies fit WARP_COPIES_BYTES,
+    one per block within BLOCK_COPY_BYTES, else the workspace (always on
+    the hash path)."""
+    copy = S * stride * 8
+    if hashed:
+        return MODE_GLOBAL, 0
+    if GB_WARPS * copy <= WARP_COPIES_BYTES:
+        return MODE_WARP, GB_WARPS * copy
+    if copy <= BLOCK_COPY_BYTES:
+        return MODE_BLOCK, copy
+    return MODE_GLOBAL, 0
+
+
+@functools.lru_cache(maxsize=256)
+def workspace_layout(S, P, stride, hashed, n_gslot):
+    """The regions of the one workspace: {name: (byte offset, bytes)}, each
+    at a 256-byte boundary, and the total bytes.  slots (S x stride
+    words), live (a byte per slot), tbl (the hash table), pst / pg / pv /
+    pj (the count-distinct set of P entries), tile_cnt / tile_off (the
+    compaction's tiles) and gslot (live slot ids)."""
+    n_tiles = -(-S // SCAN_TILE)
+    sizes = (("slots", S * stride * 8), ("live", S),
+             ("tbl", S * 8 if hashed else 0), ("pst", P * 4), ("pg", P * 8),
+             ("pv", P * 8), ("pj", P * 4), ("tile_cnt", n_tiles * 8),
+             ("tile_off", n_tiles * 8), ("gslot", n_gslot * 8))
+    regions, off = {}, 0
+    for name, size in sizes:
+        regions[name] = (off, size)
+        off += -(-size // 256) * 256
+    return regions, off
+
+
 def _check(key_cols, key_nulls, val_cols, val_nulls, mask, agg_ops):
     dev = mask.device
     n = mask.shape[0]
@@ -209,77 +275,53 @@ def groupby_cuda(key_cols, key_nulls, val_cols, val_nulls, mask, n_keys,
     i64 = torch.int64
     n = mask.shape[0]
     m = len(agg_ops)
-    ops = [OP_CODES[o] for o in agg_ops]
+    cap = capacity
     vflt = [int(v.is_floating_point()) for v in val_cols]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    per_slot = (2 + 2 * m) * 8
+    stride, acc_w, nn_w = slot_layout(tuple(agg_ops))
     bits = sum(b for b, _o in pack) if pack is not None else None
+    S_hash = max(_next_pow2(2 * n), 1024)
     direct = False
     if pack is not None and bits <= BUCKET_BITS:
-        free, _total = torch.cuda.mem_get_info(dev)
-        direct = (1 << bits) * per_slot <= free // 4
-    S = (1 << bits) if direct else max(_next_pow2(2 * n), 1024)
-    cnt = torch.zeros(S, dtype=i64, device=dev)
-    rep = torch.full((S,), n, dtype=i64, device=dev)
-    acc, nn = [], []
-    for op, fl in zip(agg_ops, vflt):
-        if op == "min":
-            init = float("inf") if fl else torch.iinfo(i64).max
-        elif op == "max":
-            init = float("-inf") if fl else torch.iinfo(i64).min
-        else:
-            init = 0
-        dt = torch.float64 if (fl and op in ("sum_f", "min", "max")) else i64
-        acc.append(torch.full((S,), init, dtype=dt, device=dev))
-        nn.append(torch.zeros(S, dtype=i64, device=dev))
-    tbl = None if direct else torch.full((S,), -1, dtype=i64, device=dev)
+        # direct buckets where the table is no larger than the hash path's
+        # (slots, live bytes and hash table), else where it takes at most
+        # a quarter of the free memory
+        table = (1 << bits) * (stride * 8 + 1)
+        direct = (table <= S_hash * (stride * 8 + 9)
+                  or table <= torch.cuda.mem_get_info(dev)[0] // 4)
+    S = (1 << bits) if direct else S_hash
     n_dist = sum(1 for o in agg_ops if o == "cnt_dist")
     P = max(_next_pow2(2 * n * n_dist), 1024) if n_dist else 0
-    pst = pg = pv = pj = None
-    if n_dist:
-        pst = torch.zeros(P, dtype=torch.int32, device=dev)
-        pg = torch.empty(P, dtype=i64, device=dev)
-        pv = torch.empty(P, dtype=i64, device=dev)
-        pj = torch.empty(P, dtype=torch.int32, device=dev)
-
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
-    hdr = np.zeros(240, dtype=np.int64)
-    hdr[:15] = [n, S, P, n_keys, m, int(not direct),
-                int(pack is not None), mask.data_ptr(), cnt.data_ptr(),
-                rep.data_ptr(), ptr(tbl), ptr(pst), ptr(pg), ptr(pv),
-                ptr(pj)]
-    for i in range(n_keys):
-        hdr[16 + i] = key_cols[i].data_ptr()
-        hdr[24 + i] = key_nulls[i].data_ptr()
-        if pack is not None:
-            hdr[32 + i], hdr[40 + i] = pack[i]
-    for j in range(m):
-        hdr[48 + j] = val_cols[j].data_ptr()
-        hdr[80 + j] = val_nulls[j].data_ptr()
-        hdr[112 + j] = ops[j]
-        hdr[144 + j] = vflt[j]
-        hdr[176 + j] = acc[j].data_ptr()
-        hdr[208 + j] = nn[j].data_ptr()
+    mode, smem = accumulate_mode(S, stride, not direct)
+    regions, total = workspace_layout(S, P, stride, not direct,
+                                      max(min(S, n), 1))
+    ws = torch.empty(total, dtype=torch.uint8, device=dev)
+    out_i = torch.empty((n_keys + m) * cap + 1, dtype=i64, device=dev)
+    out_b = torch.empty((n_keys + m + 1) * cap, dtype=torch.bool,
+                        device=dev)
+    base = ws.data_ptr()
+    hdr = np.zeros(HDR_LEN, dtype=np.int64)
+    hdr[:25] = ([n, S, P, n_keys, m, int(not direct), int(pack is not None),
+                 mode, stride, mask.data_ptr()]
+                + [base + regions[r][0] for r in (
+                    "slots", "live", "tbl", "pst", "pg", "pv", "pj",
+                    "tile_cnt", "tile_off", "gslot")]
+                + [cap, 0, out_i.data_ptr(), out_b.data_ptr(), smem])
+    hdr[32:32 + n_keys] = [t.data_ptr() for t in key_cols]
+    hdr[40:40 + n_keys] = [t.data_ptr() for t in key_nulls]
+    if pack is not None:
+        hdr[48:48 + n_keys] = [b for b, _o in pack]
+        hdr[56:56 + n_keys] = [o for _b, o in pack]
+    hdr[64:64 + m] = [t.data_ptr() for t in val_cols]
+    hdr[96:96 + m] = [t.data_ptr() for t in val_nulls]
+    hdr[128:128 + m] = [OP_CODES[o] for o in agg_ops]
+    hdr[160:160 + m] = vflt
+    hdr[192:192 + m] = acc_w
+    hdr[224:224 + m] = nn_w
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     from . import build
-    shared = S * per_slot if direct and S * per_slot <= SHARED_BYTES else 0
-    build.check(_fn("gb_accumulate_run", 3, (1,))(
-        hdr.ctypes.data, shared, ctypes.c_void_p(stream)),
-        "gb_accumulate_run")
-
-    # live slots, compacted in slot order
-    n_tiles = (S + 2047) // 2048
-    tile_cnt = torch.empty(n_tiles, dtype=i64, device=dev)
-    tile_off = torch.empty(n_tiles, dtype=i64, device=dev)
-    gslot = torch.empty(max(min(S, n), 1), dtype=i64, device=dev)
-    ng_t = torch.zeros(1, dtype=i64, device=dev)
-    build.check(_fn("gb_compact_run", 6)(
-        hdr.ctypes.data, tile_cnt.data_ptr(), tile_off.data_ptr(),
-        gslot.data_ptr(), ng_t.data_ptr(), ctypes.c_void_p(stream)),
-        "gb_compact_run")
-
+    build.check(_fn("gb_groups_run", 2)(hdr.ctypes.data, stream),
+                "gb_groups_run")
+    ng_t = out_i[(n_keys + m) * cap]
     order = None
     if not direct:
         # hash slots are unordered: sort the groups into the contract order
@@ -287,36 +329,22 @@ def groupby_cuda(key_cols, key_nulls, val_cols, val_nulls, mask, n_keys,
         nk = 1 if pack is not None else n_keys
         gk = torch.empty(max(nk * ng, 1), dtype=i64, device=dev)
         gkn = torch.empty(max(nk * ng, 1), dtype=torch.bool, device=dev)
-        build.check(_fn("gb_group_keys_run", 6, (2,))(
-            hdr.ctypes.data, gslot.data_ptr(), ng, gk.data_ptr(),
-            gkn.data_ptr(), ctypes.c_void_p(stream)), "gb_group_keys_run")
+        build.check(_fn("gb_group_keys_run", 5, (1,))(
+            hdr.ctypes.data, ng, gk.data_ptr(), gkn.data_ptr(), stream),
+            "gb_group_keys_run")
         if ng > 0:
             cols = [gk[i * ng:(i + 1) * ng] for i in range(nk)]
             nls = [gkn[i * ng:(i + 1) * ng] for i in range(nk)]
             order = sort_topk._sort_cuda(cols, nls, [False] * nk,
                                          [False] * nk, ng, ng)
-
-    def zeros(dtype):
-        return torch.zeros(capacity, dtype=dtype, device=dev)
-
-    key_out = [zeros(i64) for _ in range(n_keys)]
-    key_null_out = [zeros(torch.bool) for _ in range(n_keys)]
-    res_dt = [torch.float64 if (op == "sum_f" or (fl and op in (
-        "min", "max", "first"))) else i64 for op, fl in zip(agg_ops, vflt)]
-    results = [zeros(dt) for dt in res_dt]
-    result_nulls = [zeros(torch.bool) for _ in range(m)]
-    valid = zeros(torch.bool)
-    out_hdr = np.zeros(81, dtype=np.int64)
-    for i in range(n_keys):
-        out_hdr[i] = key_out[i].data_ptr()
-        out_hdr[8 + i] = key_null_out[i].data_ptr()
-    for j in range(m):
-        out_hdr[16 + j] = results[j].data_ptr()
-        out_hdr[48 + j] = result_nulls[j].data_ptr()
-    out_hdr[80] = valid.data_ptr()
-    build.check(_fn("gb_emit_run", 7, (5,))(
-        hdr.ctypes.data, out_hdr.ctypes.data, gslot.data_ptr(),
-        ptr(order), ng_t.data_ptr(), capacity, ctypes.c_void_p(stream)),
-        "gb_emit_run")
-    return (tuple(key_out), tuple(key_null_out), tuple(results),
-            tuple(result_nulls), ng_t[0], valid)
+            hdr[21] = order.data_ptr()
+    build.check(_fn("gb_emit_run", 2)(hdr.ctypes.data, stream),
+                "gb_emit_run")
+    cols = out_i[:(n_keys + m) * cap].view(n_keys + m, cap).unbind(0)
+    flags = out_b.view(n_keys + m + 1, cap).unbind(0)
+    results = tuple(
+        c.view(torch.float64)
+        if op == "sum_f" or (fl and op in ("min", "max", "first")) else c
+        for c, op, fl in zip(cols[n_keys:], agg_ops, vflt))
+    return (cols[:n_keys], flags[:n_keys], results, flags[n_keys:-1], ng_t,
+            flags[-1])

@@ -136,22 +136,25 @@ def merge(parts, n_keys, merge_ops, merge_cap, pack=None):
     # through pinned memory: a pageable copy would wait for the stream
     table_d = torch.from_numpy(table).pin_memory().to(dev,
                                                       non_blocking=True)
-    keys = [torch.empty(total, dtype=i64, device=dev) for _ in range(n_keys)]
-    knulls = [torch.empty(total, dtype=torch.bool, device=dev)
-              for _ in range(n_keys)]
-    vals = [torch.empty(total, dtype=parts[0][2][j].dtype, device=dev)
-            for j in range(m)]
-    vnulls = [torch.empty(total, dtype=torch.bool, device=dev)
-              for _ in range(m)]
-    mask = torch.empty(total, dtype=torch.bool, device=dev)
+    # the gathered rows: keys and results in one int64 buffer, their NULL
+    # flags and the row mask in one bool buffer
+    flat_i = torch.empty((n_keys + m) * total, dtype=i64, device=dev)
+    flat_b = torch.empty((n_keys + m + 1) * total, dtype=torch.bool,
+                         device=dev)
+    keys = [flat_i[i * total:(i + 1) * total] for i in range(n_keys)]
+    knulls = [flat_b[i * total:(i + 1) * total] for i in range(n_keys)]
+    vals = [flat_i[(n_keys + j) * total:(n_keys + j + 1) * total].view(
+        parts[0][2][j].dtype) for j in range(m)]
+    vnulls = [flat_b[(n_keys + j) * total:(n_keys + j + 1) * total]
+              for j in range(m)]
+    mask = flat_b[(n_keys + m) * total:]
     hdr = np.zeros(88, dtype=np.int64)
     hdr[0], hdr[1], hdr[2] = n_keys, m, mask.data_ptr()
-    for i in range(n_keys):
-        hdr[8 + i] = keys[i].data_ptr()
-        hdr[16 + i] = knulls[i].data_ptr()
-    for j in range(m):
-        hdr[24 + j] = vals[j].data_ptr()
-        hdr[56 + j] = vnulls[j].data_ptr()
+    pi, pb = flat_i.data_ptr(), flat_b.data_ptr()
+    hdr[8:8 + n_keys] = [pi + 8 * i * total for i in range(n_keys)]
+    hdr[16:16 + n_keys] = [pb + i * total for i in range(n_keys)]
+    hdr[24:24 + m] = [pi + 8 * (n_keys + j) * total for j in range(m)]
+    hdr[56:56 + m] = [pb + (n_keys + j) * total for j in range(m)]
     from . import build
     if _FN[0] is None:
         _FN[0] = build.declare("ms_gather_run", 6, (1, 2, 3))
