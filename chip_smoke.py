@@ -1034,22 +1034,66 @@ def check_probe(ev, what):
     timed beside its bound.  Returns (ms, plain_ms, bound_ms)."""
     import torch
     from tidb_tpu_torch.ops.kernels import join_probe
-    kw = dict(layout=ev["layout"], mode=ev["mode"], kind=ev["kind"],
-              bvalid=ev["bvalid"], dense_span=ev["dense_span"])
-    argv = (ev["keys"], ev["knulls"], ev["pvalid"], ev["packs"], ev["a0"],
-            ev["a1"], ev["nv"])
+    argv, kw = probe_args(ev), probe_kw(ev)
 
     def run_k():
         return join_probe.probe(*argv, **kw)
 
     def run_p():
         return join_probe.probe_plain(*argv, kw["layout"], kw["mode"],
-                                      kw["kind"], kw["bvalid"], None,
+                                      kw["kind"], kw["bvalid"], kw["order"],
                                       kw["dense_span"])
     out_k, out_p = run_k(), run_p()
     torch.cuda.synchronize()
     same_outputs(out_k, out_p, what)
     return cuda_ms(run_k), cuda_ms(run_p), probe_bound_ms(ev, out_k)
+
+
+def probe_args(ev):
+    """A captured K5a call's positional arguments."""
+    return (ev["keys"], ev["knulls"], ev["pvalid"], ev["packs"], ev["a0"],
+            ev["a1"], ev["nv"])
+
+
+def probe_kw(ev):
+    return dict(layout=ev["layout"], mode=ev["mode"], kind=ev["kind"],
+                bvalid=ev["bvalid"], order=ev.get("order"),
+                dense_span=ev["dense_span"])
+
+
+#: the sorted probe's shared-memory samples timed at Q9's and the mesh's
+#: shapes (join_probe.SAMPLE is the default)
+PROBE_SAMPLES = (512, 1024, 2048, 4096)
+
+
+def probe_samples(ev, what):
+    """K5a's sorted probe of a captured call at each sample size of
+    PROBE_SAMPLES, exact against the plain version each time; one line
+    each."""
+    import torch
+    from tidb_tpu_torch.ops.kernels import join_probe
+    argv, kw = probe_args(ev), probe_kw(ev)
+    want = join_probe.probe_plain(*argv, kw["layout"], kw["mode"],
+                                  kw["kind"], kw["bvalid"], kw["order"],
+                                  kw["dense_span"])
+    nv = int(ev["nv"])
+    default = join_probe.SAMPLE
+
+    def run():
+        return join_probe.probe(*argv, **kw)
+    try:
+        for sample in PROBE_SAMPLES:
+            join_probe.SAMPLE = sample
+            got = run()
+            torch.cuda.synchronize()
+            same_outputs(got, want, f"K5a {what} sample {sample}")
+            stride, entries = join_probe.sample_stride(nv, sample)
+            log(f"[K5a] {what} sample {sample} ({8 * sample} B of shared "
+                f"memory a block; stride {stride}, {entries} entries"
+                f"{', the default' if sample == default else ''}): exact; "
+                f"{cuda_ms(run):.3f} ms; {split_text(call_split(run))}")
+    finally:
+        join_probe.SAMPLE = default
 
 
 def phase_join_kernels(args, joins, keys, report):
@@ -1075,8 +1119,10 @@ def phase_join_kernels(args, joins, keys, report):
         if not evs:
             fail(f"K5a: {name} ran no {want_layout} probe")
         for ev in evs:
-            ms, plain_ms, bound = check_probe(
-                ev, f"K5a {name} J{ev['pos']} {ev['layout']}/{ev['mode']}")
+            what = f"K5a {name} J{ev['pos']} {ev['layout']}/{ev['mode']}"
+            ms, plain_ms, bound = check_probe(ev, what)
+            split = call_split(lambda ev=ev: join_probe.probe(
+                *probe_args(ev), **probe_kw(ev)))
             n = ev["keys"][0].shape[0]
             extra = ""
             if ev["layout"] == "sorted":
@@ -1089,14 +1135,25 @@ def phase_join_kernels(args, joins, keys, report):
                 lib_ms = cuda_ms(lambda: torch.searchsorted(sk, key))
                 extra = (f"; torch.searchsorted of the packed keys alone "
                          f"{lib_ms:.3f} ms")
+                report["join_probe"].update(
+                    ms_sorted=ms, plain_ms_sorted=plain_ms,
+                    bound_ms_sorted=bound, searchsorted_ms=lib_ms,
+                    device_ms_sorted=split[0],
+                    device_ops_per_call_sorted=split[1],
+                    host_ms_sorted=split[2])
             log(f"[K5a] {name} J{ev['pos']}: {ev['layout']} {ev['mode']} "
                 f"probe, {len(ev['keys'])} key column(s), n={n}, "
                 f"n_valid={int(ev['nv'])}: exact; {ms:.3f} ms (plain "
-                f"{plain_ms:.3f} ms, bound {bound:.4f} ms){extra}")
+                f"{plain_ms:.3f} ms, bound {bound:.4f} ms); "
+                f"{split_text(split)}{extra}")
+            if ev["layout"] == "sorted":
+                probe_samples(ev, f"{name} J{ev['pos']}")
             if name == "q3" and (probe_row is None
                                  or ms > probe_row["ms"]):
                 probe_row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound)
+                                 bound_ms=bound, device_ms=split[0],
+                                 device_ops_per_call=split[1],
+                                 host_ms=split[2])
     report["join_probe"].update(probe_row)
 
     # -- K2's LOADG on Q3's post-join program --------------------------------
@@ -1175,6 +1232,7 @@ def phase_join_kernels(args, joins, keys, report):
         out_k, out_p = ex_k(), ex_p()
         torch.cuda.synchronize()
         same_outputs(out_k, out_p, f"K5b {case}")
+        split = call_split(ex_k)
         if int(out_k["total"]) != total:
             fail(f"K5b {case}: total {int(out_k['total'])} != {total}")
         if case == "total over cap" and not total > cap:
@@ -1188,10 +1246,13 @@ def phase_join_kernels(args, joins, keys, report):
             extra = (f"; torch.repeat_interleave (probe rows of the slots "
                      f"alone) {lib_ms:.3f} ms")
             exp_row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound)
+                           bound_ms=bound, device_ms=split[0],
+                           device_ops_per_call=split[1], host_ms=split[2],
+                           repeat_interleave_ms=lib_ms)
         log(f"[K5b] {case}: {no} orders -> total {total} pairs, cap {cap}, "
             f"max_cnt {idx.max_cnt}: exact; {ms:.3f} ms (plain "
-            f"{plain_ms:.3f} ms, bound {bound:.4f} ms){extra}")
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms); {split_text(split)}"
+            f"{extra}")
     report["join_expand"].update(exp_row)
 
     # -- K5b's count of the final row mask, on each join query ---------------
@@ -1218,7 +1279,8 @@ def phase_join_kernels(args, joins, keys, report):
         bound = (nbytes([mask]) + 8) / HBM_BYTES_PER_S * 1e3
         log(f"[K5b] count of {name}'s final mask: n={mask.shape[0]}, "
             f"{int(got)} kept: exact; {ms:.3f} ms (plain = mask.sum() "
-            f"{plain_ms:.3f} ms, bound {bound:.4f} ms)")
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms); "
+            f"{split_text(call_split(c_k))}")
         if cnt_row is None or mask.shape[0] > cnt_row["n"]:
             cnt_row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound, library_ms=plain_ms,
@@ -1254,6 +1316,7 @@ def phase_join_kernels(args, joins, keys, report):
     if len(got[0]) != total or total != len(lk):
         fail(f"K7: {len(got[0])} pairs, expected {len(lk)}")
     ms, plain_ms = cuda_ms(k7_k), cuda_ms(k7_p)
+    split = call_split(k7_k)
     # the bytes the match must move: both sides' keys and flags read once,
     # the build order and the pairs written once, and one sector per probe
     # row for its key's lookup (the counts and starts between the passes
@@ -1263,9 +1326,12 @@ def phase_join_kernels(args, joins, keys, report):
     bound = (moved + len(lk) * SECTOR) / HBM_BYTES_PER_S * 1e3
     log(f"[K7] orders ({no}) x lineitem ({len(lk)}) keys: {total} pairs, "
         f"exact (order, counts and pairs); {ms:.3f} ms on the card (plain "
-        f"{plain_ms:.3f} ms, bound {bound:.4f} ms)")
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms); {split_text(split)}")
     report["join_match"].update(dict(max_abs_err=0.0, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bound))
+                                     plain_ms=plain_ms, bound_ms=bound,
+                                     device_ms=split[0],
+                                     device_ops_per_call=split[1],
+                                     host_ms=split[2]))
 
 
 def phase_main_path(dom, s, n_rows, report):
@@ -1441,8 +1507,9 @@ def mpp_counters():
 
 class KernelCapture:
     """While installed, wraps kernel A's ``partition``, kernel B's
-    ``join_sum``, K4's ``valid_first_order`` (a shard's join sort) and the
-    host join index build (K6): counts the bytes each partition's grid
+    ``join_sum``, K4's ``valid_first_order`` (a shard's join sort), K5a's
+    ``probe`` (a shard's sorted count probe) and the host join index
+    build (K6): counts the bytes each partition's grid
     sends through the mesh's all_to_all and the seconds spent building
     host join indexes (the skew guard's), and, with `keep`, keeps each
     kernel's largest call's inputs and outputs, per tag, for the checks
@@ -1457,18 +1524,29 @@ class KernelCapture:
 
     def __enter__(self):
         from tidb_tpu_torch.executor import device_join
-        from tidb_tpu_torch.ops.kernels import (radix_exchange, shuffle_join,
-                                                sort_topk)
-        self._mods = (radix_exchange, shuffle_join, device_join, sort_topk)
+        from tidb_tpu_torch.ops.kernels import (join_probe, radix_exchange,
+                                                shuffle_join, sort_topk)
+        self._mods = (radix_exchange, shuffle_join, device_join, sort_topk,
+                      join_probe)
         self._fns = (radix_exchange.partition, shuffle_join.join_sum,
                      device_join.build_join_index,
-                     sort_topk.valid_first_order)
-        part_fn, sum_fn, index_fn, order_fn = self._fns
+                     sort_topk.valid_first_order, join_probe.probe)
+        part_fn, sum_fn, index_fn, order_fn, probe_fn = self._fns
 
         def valid_first_order(key, invalid):
             out = order_fn(key, invalid)
             self._keep("K4", key.shape[0], dict(key=key, invalid=invalid,
                                                 out=out))
+            return out
+
+        def probe(keys, knulls, pvalid, packs, a0, a1, nv, **kw):
+            out = probe_fn(keys, knulls, pvalid, packs, a0, a1, nv, **kw)
+            if kw.get("layout") == "sorted" and kw.get("mode") == "count":
+                self._keep("K5a", keys[0].shape[0], dict(
+                    keys=keys, knulls=knulls, pvalid=pvalid, packs=packs,
+                    a0=a0, a1=a1, nv=nv, layout="sorted", mode="count",
+                    kind=kw.get("kind", "inner"), bvalid=kw.get("bvalid"),
+                    order=kw.get("order"), dense_span=None))
             return out
 
         def build_join_index(*a, **kw):
@@ -1498,6 +1576,7 @@ class KernelCapture:
         shuffle_join.join_sum = join_sum
         device_join.build_join_index = build_join_index
         sort_topk.valid_first_order = valid_first_order
+        join_probe.probe = probe
         return self
 
     def _keep(self, kernel, size, ev):
@@ -1510,7 +1589,7 @@ class KernelCapture:
     def __exit__(self, *exc):
         (self._mods[0].partition, self._mods[1].join_sum,
          self._mods[2].build_join_index,
-         self._mods[3].valid_first_order) = self._fns
+         self._mods[3].valid_first_order, self._mods[4].probe) = self._fns
         return False
 
 
@@ -1753,6 +1832,23 @@ def check_join_sort(ev, tag, report):
         f"key {lib_ms:.3f} ms")
     report["sort_topk"].update(ms_join_sort=ms, join_sort_bound_ms=bound,
                                library_ms_join_sort=lib_ms)
+
+
+def check_mesh_probe(ev, tag, report):
+    """K5a on the mesh's largest shard probe (a sort join's count probe
+    through K4's order): exact against the plain version, timed beside its
+    bound, and at each sample size."""
+    from tidb_tpu_torch.ops.kernels import join_probe
+    ms, plain_ms, bound = check_probe(ev, f"K5a mesh probe ({tag})")
+    split = call_split(lambda: join_probe.probe(*probe_args(ev),
+                                                **probe_kw(ev)))
+    log(f"[mpp] K5a sorted count probe on the largest shard ({tag}: "
+        f"{ev['keys'][0].shape[0]} probe rows, {int(ev['nv'])} build "
+        f"keys): exact; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{bound:.4f} ms); {split_text(split)}")
+    report["join_probe"].update(ms_mesh=ms, plain_ms_mesh=plain_ms,
+                                bound_ms_mesh=bound)
+    probe_samples(ev, f"mesh {tag}")
 
 
 def mpp_profile(tag, s, name, sql):
@@ -2011,6 +2107,12 @@ def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
         fail("mpp: K4's join sort inputs were not captured")
     _size, tag, ev = max(sorts, key=lambda t: t[0])
     check_join_sort(ev, tag, report)
+    probes = [(size, tag, ev) for (kernel, tag), (size, ev)
+              in cap.calls.items() if kernel == "K5a"]
+    if not probes:
+        fail("mpp: K5a's sorted probe inputs were not captured")
+    _size, tag, ev = max(probes, key=lambda t: t[0])
+    check_mesh_probe(ev, tag, report)
     log(f"[mpp] K11 dist steps: {steps}")
     # the placements leave the card for the phases after this one
     with mpp_exec._PLACE_LOCK:
@@ -3135,7 +3237,13 @@ def main(argv=None) -> int:
              "device_ms_q1", "device_ops_per_call_q1", "host_ms_q1",
              # K1 over mid-size slot spaces, and with the workspace forced
              *(f"ms_mid_{1 << b}{w}" for b in MID_GROUP_BITS
-               for w in ("", "_workspace")))
+               for w in ("", "_workspace")),
+             # K5a's sorted probe at Q9 and on the mesh's largest shard,
+             # K5b's inner expansion against torch.repeat_interleave
+             "ms_sorted", "plain_ms_sorted", "bound_ms_sorted",
+             "searchsorted_ms", "device_ms_sorted",
+             "device_ops_per_call_sorted", "host_ms_sorted", "ms_mesh",
+             "plain_ms_mesh", "bound_ms_mesh", "repeat_interleave_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report.values()]}))

@@ -1002,3 +1002,218 @@ def test_merge_states_of_many_small_parts(dev, pack):
     p = merge_states.merge_plain(parts, 2, merge_ops, 1 << 9, pack)
     torch.cuda.synchronize()
     k1_same(k, p, merge_ops, 1 << 9)
+
+
+# -- K5a's sampled sorted probe and K5b's slot-tiled expansion ----------------
+
+_I64_MAX = np.iinfo(np.int64).max
+_PROBE_MODES = [("uniq", "inner"), ("uniq", "left"), ("uniq", "semi"),
+                ("uniq", "anti"), ("count", "inner"), ("exists", "semi"),
+                ("exists", "anti")]
+
+
+def _sorted_probe_case(case, rng):
+    """(build keys in sorted order, padded with int64.max; n_valid; probe
+    keys; a sort order or None) for one edge of the sampled search."""
+    order = None
+    if case == "nv0":
+        sk, nv = np.full(8, _I64_MAX), 0
+    elif case == "nv1":
+        sk, nv = np.array([42, _I64_MAX, _I64_MAX]), 1
+    elif case == "ragged":  # n_valid no multiple of any sample stride
+        sk = np.sort(rng.integers(0, 30_000, 10_007))
+        nv = len(sk)
+    elif case == "straddle":  # runs of 7 equal keys across sample points
+        sk, nv = np.repeat(np.arange(0, 9_000, 3), 7), 3_000 * 7
+    elif case == "hot":  # one key over most of the index
+        sk = np.sort(np.concatenate([np.full(50_000, 500),
+                                     rng.integers(0, 1_000, 3_001)]))
+        nv = len(sk)
+    elif case == "i64max":  # real int64.max keys, then the padding
+        sk = np.concatenate([np.sort(rng.integers(-50, 50, 999)),
+                             np.full(3, _I64_MAX), np.full(13, _I64_MAX)])
+        nv = 1_002
+    else:  # "order": unsorted keys read through a sort order
+        keys = rng.integers(-100, 4_000, 20_011)
+        order = np.argsort(keys, kind="stable")
+        sk, nv = keys, len(keys)
+    valid = sk[:nv] if order is None else sk[order]
+    lo = int(valid.min()) if nv else 0
+    hi = int(valid.max()) if nv else 0
+    probe = np.concatenate([
+        rng.choice(valid, 5_000) if nv else np.zeros(0, np.int64),
+        lo - rng.integers(1, 1_000, 500),  # below the first key
+        min(hi, _I64_MAX - 1_000) + rng.integers(1, 1_000, 500),  # above
+        np.array([_I64_MAX, np.iinfo(np.int64).min, lo, hi])])
+    return sk, nv, probe, order
+
+
+@pytest.mark.parametrize("sample", [1, 3, 1024, 4096])
+@pytest.mark.parametrize("case", ["nv0", "nv1", "ragged", "straddle", "hot",
+                                  "i64max", "order"])
+def test_sorted_probe_edges_match_plain(dev, case, sample, monkeypatch):
+    """The sorted probe bit for bit against its plain version at every
+    mode and kind, with invalid and NULL probe rows, n_valid on the host
+    and on the device, a sample of one key (the whole search in device
+    memory), of three, and the default."""
+    from tidb_tpu_torch.ops.kernels import join_probe
+    monkeypatch.setattr(join_probe, "SAMPLE", sample)
+    rng = np.random.default_rng(31)
+    sk, nv, probe, order = _sorted_probe_case(case, rng)
+    n = len(probe)
+    rows = _up(rng.permutation(max(len(sk), 1)).astype(np.int32), dev)
+    bvalid = _up(rng.random(max(len(sk), 1)) < 0.9, dev)
+    pvalid = _up(rng.random(n) < 0.9, dev)
+    a0 = _up(sk, dev)
+    o = None if order is None else _up(order, dev)
+    # the packed path (keys as they are) and the range-packed path (one
+    # column with NULLs, packed as key - 0 within [0, span): the keys
+    # outside the span cannot match)
+    clipped = np.clip(probe, -(1 << 40), 1 << 40)
+    inputs = [([_up(probe, dev)], None, None),
+              ([_up(clipped, dev)], [_up(rng.random(n) < 0.05, dev)],
+               [(0, int(clipped.max()) + 1)])]
+    for keys, knulls, packs in inputs:
+        for nv_arg in (nv, torch.tensor(nv, device=dev)):
+            for mode, kind in _PROBE_MODES:
+                args = (keys, knulls, pvalid, packs, a0, rows, nv_arg)
+                kw = dict(layout="sorted", mode=mode, kind=kind,
+                          bvalid=bvalid, order=o)
+                got = join_probe.probe(*args, **kw)
+                want = join_probe.probe_plain(*args, "sorted", mode, kind,
+                                              bvalid, o, None)
+                _same(got, want, f"{case}/{sample}/{mode}/{kind}")
+                if mode == "count":
+                    miss = want["cnt"] == 0
+                    assert not want["pos0"][miss].any()
+
+
+def test_dense_probe_skips_rows_that_cannot_match(dev):
+    """The dense probe's rows that are invalid, NULL or out of range read
+    no CSR start: pos0 = bi = 0, like a key without build rows."""
+    from tidb_tpu_torch.ops.kernels import join_probe
+    from tidb_tpu_torch.executor.join_index import build_join_index
+    from tidb_tpu_torch.sqltypes import TYPE_LONGLONG, FieldType
+    from tidb_tpu_torch.utils.chunk import Column
+    rng = np.random.default_rng(32)
+    nb, n = 20_000, 100_003
+    bk = rng.integers(0, 15_000, nb)
+    idx = build_join_index([Column(FieldType(tp=TYPE_LONGLONG), bk,
+                                   np.zeros(nb, bool))])
+    assert idx.kind == "dense"
+    a0, a1 = _up(idx.starts, dev), _up(idx.rows, dev)
+    keys = [_up(rng.integers(-500, 16_000, n), dev)]
+    knulls = [_up(rng.random(n) < 0.05, dev)]
+    pvalid = _up(rng.random(n) < 0.9, dev)
+    for mode, kind in _PROBE_MODES:
+        args = (keys, knulls, pvalid, idx.packs, a0, a1, idx.n_valid)
+        got = join_probe.probe(*args, layout="dense", mode=mode, kind=kind,
+                               dense_span=idx.span)
+        want = join_probe.probe_plain(*args, "dense", mode, kind, None,
+                                      None, idx.span)
+        _same(got, want, f"dense {mode}/{kind}")
+        if mode == "uniq":
+            assert not got["bi"][~got["hit"]].any()
+
+
+def _expand_case(case, rng):
+    """(cnt, pos0, n_valid, cap, left) for one edge of the expansion."""
+    nb = 60_000
+    left = case == "hot_key_left"
+    if case in ("hot_key", "hot_key_left"):
+        cnt = rng.integers(0, 3, 20_001)
+        cnt[9_000] = 5_000  # over several 1024-slot tiles
+        cnt[9_001] = 1_500
+    elif case == "tile_edge":  # runs of 3 across every slot tile's edge,
+        cnt = np.full(8_192 * 2 + 5, 3)  # rows over two scan tiles' edges
+    elif case == "total0":
+        cnt = np.zeros(5_000, np.int64)
+    elif case == "n0":
+        cnt = np.zeros(0, np.int64)
+    else:
+        cnt = rng.integers(0, 6, 50_007)
+    pos0 = (rng.integers(0, nb - 5_001, len(cnt)) if len(cnt)
+            else np.zeros(0, np.int64))
+    total = int(cnt.sum())
+    cap = {"over_cap": total // 3, "cap_exact": total}.get(
+        case, total + 1_027)
+    return cnt, pos0, nb, max(cap, 0 if case == "n0" else 1), left
+
+
+@pytest.mark.parametrize("ids", ["int32", "int64"])
+@pytest.mark.parametrize("case", ["hot_key", "hot_key_left", "tile_edge",
+                                  "total0", "n0", "over_cap", "cap_exact",
+                                  "maps16"])
+def test_join_expand_edges_match_plain(dev, case, ids):
+    """K5b bit for bit against its plain version: a hot key over several
+    slot tiles, runs across tile edges, no slots filled, no probe rows,
+    the total over the capacity and equal to it, both row-id types, and
+    16 maps (int64 and bool, probe and build side)."""
+    from tidb_tpu_torch.ops.kernels import join_expand
+    rng = np.random.default_rng(34)
+    cnt, pos0, nb, cap, left = _expand_case(case, rng)
+    n = len(cnt)
+    a1 = _up(rng.permutation(nb).astype(ids), dev)
+    pvalid = _up(rng.random(n) < 0.9, dev)
+    bvalid = _up(rng.random(nb) < 0.9, dev)
+    pm, bm = [], []
+    if case == "maps16":
+        pm = [_up(rng.integers(0, 10**9, n), dev) for _ in range(5)]
+        pm += [_up(rng.random(n) < 0.3, dev) for _ in range(4)]
+        bm = [_up(rng.integers(0, 10**9, nb), dev) for _ in range(4)]
+        bm += [_up(rng.random(nb) < 0.3, dev) for _ in range(3)]
+    elif n:
+        pm = [_up(rng.integers(0, 10**6, n), dev)]
+        bm = [_up(rng.random(nb) < 0.5, dev)]
+    args = (_up(cnt, dev), _up(pos0, dev), pvalid, a1, nb, bvalid, cap)
+    got = join_expand.expand(*args, left=left, probe_maps=pm, build_maps=bm)
+    want = join_expand.expand_plain(*args, left, pm, bm)
+    _same(got, want, case)
+    if case == "over_cap":
+        assert int(got["total"]) > cap
+    if case == "cap_exact":
+        assert int(got["total"]) == cap
+
+
+@pytest.mark.parametrize("density", [0.0, 0.003, 0.5, 1.0])
+def test_compact_and_count_match_plain(dev, density):
+    """compact over sparse masks (a slot tile then covers more rows than
+    it stages: the offsets are searched in device memory), a dense one,
+    none and all kept; count in one launch."""
+    from tidb_tpu_torch.ops.kernels import join_expand
+    rng = np.random.default_rng(35)
+    n = 700_001
+    mask = _up(rng.random(n) < density, dev)
+    maps = [_up(rng.integers(0, 10**6, n), dev), _up(rng.random(n) < 0.5,
+                                                     dev)]
+    kept = int(mask.sum())
+    for cap in (max(kept, 1), kept + 3, 1 << 20):
+        got = join_expand.compact(mask, cap, maps)
+        want = join_expand.expand_plain(None, None, None, None, 0, None,
+                                        cap, probe_maps=maps, cmask=mask)
+        _same(got, want, f"compact {density} {cap}")
+    assert int(join_expand.count(mask)) == kept
+
+
+def test_expand_and_count_launch_counts(dev):
+    """An expansion launches 2 kernels, a count 1 (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from tidb_tpu_torch.ops.kernels import join_expand
+    rng = np.random.default_rng(36)
+    n, nb = 100_000, 50_000
+    cnt = _up(rng.integers(0, 4, n), dev)
+    pos0 = _up(rng.integers(0, nb - 4, n), dev)
+    a1 = _up(np.arange(nb), dev)
+    mask = _up(rng.random(n) < 0.5, dev)
+    for call, want in ((lambda: join_expand.expand(
+            cnt, pos0, None, a1, nb, None, 1 << 18), 2),
+            (lambda: join_expand.count(mask), 1)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name.startswith("je_")]
+        assert len(kernels) == want, [e.name for e in kernels]

@@ -206,14 +206,17 @@ def test_probe_matches_reference(layout, mode):
                            _t(pvalid), port.packs, _t(a0), _t(port.rows),
                            port.n_valid, layout=layout, mode=mode,
                            bvalid=_t(bvalid), dense_span=port.span)
-    assert cnt.sum() > 0
+    assert cnt.sum() > 0 and (cnt == 0).any()
+    # a row without a match has pos0 = bi = 0; the reference leaves both
+    # at an arbitrary position
+    matched = cnt > 0
     if mode == "count":
-        assert np.array_equal(_np(got["pos0"]), pos0)
+        assert np.array_equal(_np(got["pos0"]), np.where(matched, pos0, 0))
         assert np.array_equal(_np(got["cnt"]), cnt)
         assert int(got["count"]) == int(cnt.sum())
     else:
-        hit = (cnt > 0) & bvalid[bi]
-        assert np.array_equal(_np(got["bi"]), bi)
+        hit = matched & bvalid[bi]
+        assert np.array_equal(_np(got["bi"]), np.where(matched, bi, 0))
         assert np.array_equal(_np(got["hit"]), hit)
         assert np.array_equal(_np(got["valid"]), pvalid & hit)
         assert int(got["count"]) == int((pvalid & hit).sum())
@@ -243,13 +246,15 @@ def test_probe_sorted_keys_with_a_real_int64_max():
         got = join_probe.probe([_t(key)], None, _t(ok), None, _t(sk),
                                _t(rows), nv, layout="sorted",
                                mode="uniq" if uniq else "count")
+        # rows without a match: pos0 = bi = 0
         if uniq:
             assert np.array_equal(_np(got["hit"]), cnt > 0)
-            assert np.array_equal(_np(got["bi"]),
-                                  rows[np.clip(pos0, 0, nv - 1)])
+            assert np.array_equal(_np(got["bi"]), np.where(
+                cnt > 0, rows[np.clip(pos0, 0, nv - 1)], 0))
         else:
             assert np.array_equal(_np(got["cnt"]), cnt)
-            assert np.array_equal(_np(got["pos0"]), pos0)
+            assert np.array_equal(_np(got["pos0"]),
+                                  np.where(cnt > 0, pos0, 0))
     assert cnt[0] == 1  # the real int64.max key matches once, not 4 times
 
 
@@ -380,6 +385,86 @@ def test_csr_expand_matches_reference(left, cap):
     assert np.array_equal(_np(got["maps"][0])[valid], pmap[pi[valid]])
     if left:
         assert nohit[valid].any()  # null-extended rows were emitted
+
+
+@pytest.mark.parametrize("layout", ["dense", "sorted"])
+def test_left_join_probe_and_expand_match_reference(layout):
+    """K5a's count probe into K5b's left expansion against the
+    reference's probe and CSR blocks on the same inputs: rows with NULL,
+    out-of-range and unmatched keys now carry pos0 = 0 (the reference an
+    arbitrary start), and the null-extended slots they emit, like every
+    matched slot, are the reference's."""
+    rng = np.random.default_rng(27)
+    nb, n = 1200, 3001
+    k0 = rng.integers(100, 500, nb)
+    ref, port = _index_pair([k0], mask=rng.random(nb) < 0.7,
+                            force_sorted=layout == "sorted")
+    assert port.kind == layout
+    kds = [rng.integers(50, 560, n)]
+    knulls = [rng.random(n) < 0.05]
+    pvalid = rng.random(n) < 0.9
+    bvalid = rng.random(nb) < 0.9
+    a0 = port.starts if layout == "dense" else port.sorted_keys
+    pos0, cnt, _bi = _ref_probe(kds, knulls, pvalid, port.packs, a0,
+                                port.rows, port.n_valid, layout, False,
+                                port.span)
+    assert (pvalid & (cnt == 0)).any() and (pos0[cnt == 0] != 0).any()
+    cap = 1 << 14
+    pi, bi, valid, nohit, total = _ref_csr(cnt, pos0, pvalid, port.rows,
+                                           port.n_valid, bvalid, cap, True)
+    pr = join_probe.probe([_t(k) for k in kds], [_t(x) for x in knulls],
+                          _t(pvalid), port.packs, _t(a0), _t(port.rows),
+                          port.n_valid, layout=layout,
+                          mode="count", dense_span=port.span)
+    assert np.array_equal(_np(pr["cnt"]), cnt)
+    assert not _np(pr["pos0"])[cnt == 0].any()
+    got = join_expand.expand(pr["cnt"], pr["pos0"], _t(pvalid),
+                             _t(port.rows), port.n_valid, _t(bvalid), cap,
+                             left=True)
+    assert int(got["total"]) == int(total)
+    assert np.array_equal(_np(got["valid"]), valid)
+    assert np.array_equal(_np(got["pi"])[valid], pi[valid])
+    assert np.array_equal(_np(got["nohit"])[valid], nohit[valid])
+    hit = valid & ~nohit
+    assert np.array_equal(_np(got["bi"])[hit], bi[hit])
+    assert nohit[valid].any()
+
+
+@pytest.mark.parametrize("nv,sample", [(0, 4096), (1, 4096), (4096, 4096),
+                                       (4097, 4096), (10_007, 3),
+                                       (800_000, 4096), (800_000, 1),
+                                       (6_001_215, 16_384)])
+def test_sample_stride_plan(nv, sample):
+    """The sorted probe's sample: at most `sample` keys, every stride-th,
+    covering [0, nv) with the last segment ragged; a row then searches
+    the sample and one segment of at most stride - 1 keys."""
+    stride, entries = join_probe.sample_stride(nv, sample)
+    assert entries <= sample and stride >= 1
+    if nv:
+        assert (entries - 1) * stride < nv <= entries * stride
+    else:
+        assert entries == 0
+    if nv <= sample:
+        assert stride == 1  # the whole index sits in shared memory
+
+
+@pytest.mark.parametrize("n,cap,count_only,launches", [
+    (0, 0, True, 1), (0, 16, False, 2), (5, 0, False, 1),
+    (8192, 1024, False, 2), (8193, 1025, False, 2),
+    (1_500_000, 1 << 23, False, 2), (8_388_608, 0, True, 1)])
+def test_expand_launch_plan(n, cap, count_only, launches):
+    """K5b's launches: the scan alone for a count (one block at least,
+    which writes a total of 0 for no rows), the scan and the expansion
+    for an expansion with slots; the expansion's grid-stride loop caps
+    its blocks."""
+    plan = join_expand.launch_plan(n, cap, count_only)
+    assert plan["launches"] == launches
+    assert plan["scan_blocks"] == max(-(-n // join_expand.TILE), 1)
+    if launches == 2:
+        assert plan["slot_tiles"] * join_expand.SLOT_TILE >= cap
+        assert 1 <= plan["expand_blocks"] <= join_expand.EXPAND_BLOCKS
+    else:
+        assert plan["expand_blocks"] == 0
 
 
 def test_compact_keeps_row_order():

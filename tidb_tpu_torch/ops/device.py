@@ -862,9 +862,9 @@ _agg_kernel = _agg_entry
 def _join_count_impl(build_key, probe_key, build_null, probe_valid,
                      n_build_valid):
     """Pass 1: order the build side (non-NULL keys first, by key, stable;
-    K4) and count each probe row's matches among them (K5a, sorted
-    layout read through the order, bounds clamped to the non-NULL
-    prefix).  Returns (order, pos0, cnt, total)."""
+    K4) and count each probe row's matches among them (K5a's sorted probe,
+    which gathers the keys in that order once; bounds clamped to the
+    non-NULL prefix).  Returns (order, pos0, cnt, total)."""
     from .kernels import join_probe, sort_topk
     order = sort_topk.valid_first_order(build_key, build_null)
     pr = join_probe.probe([probe_key], [None], probe_valid, None, build_key,

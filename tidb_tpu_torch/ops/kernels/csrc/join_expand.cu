@@ -25,18 +25,43 @@
 // once and reads one row id, one build validity flag and one entry of each
 // map at random (one 32-byte sector each).
 //
-// Design (simple and correct first): a hand-written three-pass exclusive
-// scan over tiles of 2048 rows (tile sums; one block scans the tile sums
-// and writes the exact total; each tile rescans its rows), and in the last
-// pass one thread per probe row writes that row's output slots.  A hot key
-// (JoinIndex.max_cnt) makes that thread's loop long; balancing it is later
-// work.
+// Design: two launches an expansion, one a count.
+//   je_scan   - a single-pass exclusive scan of cnt_eff by decoupled
+//               look-back: each block of 1024 threads takes the next tile
+//               of 8192 rows (one atomic add on a tile counter, so every
+//               tile it waits on is already running), scans it, publishes
+//               the tile's sum, and warp 0 looks back over the tiles
+//               before it, 32 at a time, until one has published its
+//               inclusive prefix.  It writes each row's offset and the
+//               exact total (the last tile).  A count sums its tiles and
+//               the last block to finish adds the sums.  Status words
+//               carry the call's epoch, so no launch clears them.
+//   je_expand - a grid-stride loop over tiles of 1024 consecutive output
+//               slots, 4 a thread: the block finds the rows that cover its
+//               tile by two binary searches of the offsets, stages their
+//               offsets in shared memory (a tile covered by more rows than
+//               that holds, such as a sparse compaction, searches the
+//               offsets in device memory instead), and each thread resolves
+//               its own slots there.  Consecutive threads write consecutive
+//               slots: int64 outputs as 16-byte stores, bytes as 4-byte
+//               words.  A hot key is spread over the block's threads by
+//               construction.  Slots past the total are written in the
+//               same loop.
 #include "common.cuh"
 
 #define JE_MAX_MAPS 16
-#define JE_ITEMS 8
-#define JE_TILE (TIDB_THREADS * JE_ITEMS)
 #define JE_SCAN_THREADS 1024
+#define JE_SCAN_WARPS (JE_SCAN_THREADS / 32)
+#define JE_ITEMS 8                             // rows a thread scans
+#define JE_TILE (JE_SCAN_THREADS * JE_ITEMS)   // rows a scan tile
+#define JE_THREADS 256                         // the expansion's blocks
+#define JE_SLOTS 4                             // slots a thread expands
+#define JE_STILE (JE_THREADS * JE_SLOTS)       // slots an expansion tile
+#define JE_RMAX 4096                           // rows staged for one tile
+#define JE_AGG 1u
+#define JE_INCL 2u
+
+typedef unsigned int u32;
 
 struct ExpandArgs {
   i64 n;
@@ -51,9 +76,16 @@ struct ExpandArgs {
   i64 nv;
   const unsigned char* bvalid;  // may be null
   i64 cap;
-  i64* tile_sums;
-  i64* tile_offs;
+  i64* off;    // each row's exclusive offset (null: a count)
   i64* total;
+  // scan status, per tile: flag (epoch << 2 | state), aggregate, inclusive
+  // prefix; ctr: the tiles taken so far in this call (the block that takes
+  // the last one sets it back to 0)
+  u64* flag;
+  i64* agg;
+  i64* incl;
+  u64* ctr;
+  u64 epoch;
   i64* pi;
   i64* bi;
   unsigned char* valid;
@@ -72,136 +104,312 @@ __device__ __forceinline__ i64 cnt_eff(const ExpandArgs& a, i64 i) {
   return pv ? (c > 1 ? c : 1) : 0;
 }
 
-__global__ void je_tile_sums(ExpandArgs a) {
-  const i64 base = (i64)blockIdx.x * JE_TILE + (i64)threadIdx.x * JE_ITEMS;
-  i64 s = 0;
-#pragma unroll
-  for (int j = 0; j < JE_ITEMS; ++j)
-    if (base + j < a.n) s += cnt_eff(a, base + j);
-  __shared__ i64 part[TIDB_THREADS / 32];
-  s = warp_sum_i64(s);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    i64 t = 0;
-    for (int w = 0; w < TIDB_THREADS / 32; ++w) t += part[w];
-    a.tile_sums[blockIdx.x] = t;
-  }
+// -- the scan -------------------------------------------------------------------
+
+__device__ __forceinline__ void je_publish(const ExpandArgs& a, i64 t, u32 state,
+                                           i64 v) {
+  if (state == JE_INCL)
+    *(volatile i64*)&a.incl[t] = v;
+  else
+    *(volatile i64*)&a.agg[t] = v;
+  __threadfence();
+  *(volatile u64*)&a.flag[t] = (a.epoch << 2) | state;
 }
 
-// Inclusive scan of one value per thread across the block (blockDim a
-// multiple of 32, at most 1024); returns the thread's inclusive prefix and
-// the block total in *sum.
-__device__ __forceinline__ i64 block_scan(i64 v, i64* sum) {
-  __shared__ i64 warp_tot[32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const i64 u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += u;
-  }
-  __syncthreads();
-  if (lane == 31) warp_tot[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    const int nw = blockDim.x >> 5;
-    i64 t = lane < nw ? warp_tot[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const i64 u = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += u;
-    }
-    if (lane < nw) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  if (w > 0) v += warp_tot[w - 1];
-  *sum = warp_tot[(blockDim.x >> 5) - 1];
+__device__ __forceinline__ i64 warp_sum_all(i64 v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// One block: exclusive scan of the tile sums, and the exact total.
-__global__ void je_scan_tiles(ExpandArgs a, i64 n_tiles) {
-  i64 carry = 0;
-  for (i64 base = 0; base < n_tiles; base += blockDim.x) {
-    const i64 t = base + threadIdx.x;
-    const i64 v = t < n_tiles ? a.tile_sums[t] : 0;
-    i64 sum;
-    const i64 inc = block_scan(v, &sum);
-    if (t < n_tiles) a.tile_offs[t] = carry + inc - v;
-    carry += sum;
+// Warp 0: the exclusive prefix of tile t, whose own sum is `sum`.
+__device__ i64 je_lookback(const ExpandArgs& a, i64 t, i64 sum) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) je_publish(a, t, t == 0 ? JE_INCL : JE_AGG, sum);
+  if (t == 0) return 0;
+  i64 excl = 0;
+  for (i64 top = t - 1;; top -= 32) {
+    const i64 p = top - lane;
+    u32 state = JE_INCL;
+    i64 v = 0;
+    if (p >= 0) {
+      u64 f;
+      do {
+        f = *(volatile u64*)&a.flag[p];
+      } while ((f >> 2) != a.epoch);
+      __threadfence();
+      state = (u32)(f & 3);
+      v = state == JE_INCL ? *(volatile i64*)&a.incl[p]
+                           : *(volatile i64*)&a.agg[p];
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, state == JE_INCL);
+    const int stop = m ? __ffs(m) - 1 : 31;
+    excl += warp_sum_all(lane <= stop ? v : 0);
+    if (m) break;
+  }
+  if (lane == 0) je_publish(a, t, JE_INCL, excl + sum);
+  return excl;
+}
+
+__global__ void __launch_bounds__(JE_SCAN_THREADS) je_scan(ExpandArgs a) {
+  __shared__ i64 s_tile;
+  __shared__ i64 s_wtot[JE_ITEMS][JE_SCAN_WARPS];  // then their prefixes
+  __shared__ i64 s_ctot[JE_ITEMS];
+  __shared__ i64 s_prefix;
+  __shared__ int s_last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (a.n <= 0) {
+    if (tid == 0) *a.total = 0;
+    return;
+  }
+  const i64 n_tiles = (a.n + JE_TILE - 1) / JE_TILE;
+  if (!a.off) {
+    // a count: each block sums its tile; the last block to finish adds
+    // the tiles' sums and leaves the counter at 0 for the next call
+    const i64 base = (i64)blockIdx.x * JE_TILE;
+    i64 sum = 0;
+#pragma unroll
+    for (int j = 0; j < JE_ITEMS; ++j) {
+      const i64 r = base + (i64)j * JE_SCAN_THREADS + tid;
+      sum += r < a.n ? cnt_eff(a, r) : 0;
+    }
+    sum = warp_sum_all(sum);
+    if (lane == 0) s_wtot[0][warp] = sum;
     __syncthreads();
-  }
-  if (threadIdx.x == 0) *a.total = carry;
-}
-
-__device__ __forceinline__ void write_maps(const ExpandArgs& a, i64 s, i64 pi,
-                                           i64 bi) {
-  for (int m = 0; m < a.n_maps; ++m) {
-    const i64 at = a.mside[m] ? bi : pi;
-    if (a.mbool[m])
-      ((unsigned char*)a.mdst[m])[s] = ((const unsigned char*)a.msrc[m])[at];
-    else
-      ((i64*)a.mdst[m])[s] = ((const i64*)a.msrc[m])[at];
-  }
-}
-
-__global__ void je_expand(ExpandArgs a) {
-  const i64 base = (i64)blockIdx.x * JE_TILE + (i64)threadIdx.x * JE_ITEMS;
-  i64 e[JE_ITEMS];
-  i64 s = 0;
-#pragma unroll
-  for (int j = 0; j < JE_ITEMS; ++j) {
-    e[j] = base + j < a.n ? cnt_eff(a, base + j) : 0;
-    s += e[j];
-  }
-  i64 sum;
-  i64 slot = a.tile_offs[blockIdx.x] + block_scan(s, &sum) - s;
-  const i64 safe_hi = a.nv - 1 > 0 ? a.nv - 1 : 0;
-#pragma unroll
-  for (int j = 0; j < JE_ITEMS; ++j) {
-    const i64 i = base + j;
-    if (i >= a.n) break;
-    const i64 c = a.build ? a.cnt[i] : 0;
-    const bool pv = a.pvalid ? a.pvalid[i] != 0 : true;
-    for (i64 w = 0; w < e[j] && slot < a.cap; ++w, ++slot) {
-      a.pi[slot] = i;
-      i64 b = 0;
-      if (a.build) {
-        const i64 cm1 = c - 1 > 0 ? c - 1 : 0;
-        i64 bpos = a.pos0[i] + (w < cm1 ? w : cm1);
-        bpos = bpos < 0 ? 0 : (bpos > safe_hi ? safe_hi : bpos);
-        b = load_index(a.a1, a.a1_64, bpos);
-        const bool h = w < c && (a.bvalid ? a.bvalid[b] != 0 : true);
-        a.bi[slot] = b;
-        a.valid[slot] = a.left ? pv : (h && pv);
-        if (a.nohit) a.nohit[slot] = !h;
-      } else {
-        a.valid[slot] = 1;
-      }
-      write_maps(a, slot, i, b);
+    if (tid == 0) {
+      i64 t = 0;
+      for (int w = 0; w < JE_SCAN_WARPS; ++w) t += s_wtot[0][w];
+      *(volatile i64*)&a.agg[blockIdx.x] = t;
+      __threadfence();
+      const u64 done = atomicAdd((unsigned long long*)a.ctr, 1ull);
+      s_last = done == (u64)(n_tiles - 1);
     }
-    if (slot >= a.cap) break;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    i64 t = 0;
+    for (i64 i = tid; i < n_tiles; i += JE_SCAN_THREADS)
+      t += *(volatile i64*)&a.agg[i];
+    t = warp_sum_all(t);
+    __syncthreads();
+    if (lane == 0) s_wtot[0][warp] = t;
+    __syncthreads();
+    if (tid == 0) {
+      i64 total = 0;
+      for (int w = 0; w < JE_SCAN_WARPS; ++w) total += s_wtot[0][w];
+      *a.total = total;
+      *(volatile u64*)a.ctr = 0;
+    }
+    return;
+  }
+  // tiles in the order blocks start, so every tile a block waits on is
+  // already running; every block takes one, and the last taker leaves the
+  // counter at 0 for the next call on the stream
+  if (tid == 0) {
+    const i64 t = (i64)atomicAdd((unsigned long long*)a.ctr, 1ull);
+    if (t == n_tiles - 1) atomicExch((unsigned long long*)a.ctr, 0ull);
+    s_tile = t;
+  }
+  __syncthreads();
+  const i64 t = s_tile;
+  const i64 base = t * JE_TILE;
+  i64 ex[JE_ITEMS];
+  // row base + j * JE_SCAN_THREADS + tid: loads and stores stay coalesced,
+  // and the rows of one j are scanned across the block
+#pragma unroll
+  for (int j = 0; j < JE_ITEMS; ++j) {
+    const i64 r = base + (i64)j * JE_SCAN_THREADS + tid;
+    const i64 v = r < a.n ? cnt_eff(a, r) : 0;
+    i64 x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const i64 u = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += u;
+    }
+    ex[j] = x - v;  // exclusive, within the warp
+    if (lane == 31) s_wtot[j][warp] = x;
+  }
+  __syncthreads();
+  if (warp < JE_ITEMS) {  // warp j: the exclusive prefix of j's warp totals
+    const i64 w = s_wtot[warp][lane];
+    i64 x = w;
+    for (int o = 1; o < 32; o <<= 1) {
+      const i64 u = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += u;
+    }
+    s_wtot[warp][lane] = x - w;
+    if (lane == 31) s_ctot[warp] = x;
+  }
+  __syncthreads();
+  i64 run = 0;
+#pragma unroll
+  for (int j = 0; j < JE_ITEMS; ++j) {
+    ex[j] += run + s_wtot[j][warp];  // exclusive, within the tile
+    run += s_ctot[j];
+  }
+  if (warp == 0) {
+    const i64 pre = je_lookback(a, t, run);
+    if (lane == 0) s_prefix = pre;
+  }
+  __syncthreads();
+  const i64 pre = s_prefix;
+#pragma unroll
+  for (int j = 0; j < JE_ITEMS; ++j) {
+    const i64 r = base + (i64)j * JE_SCAN_THREADS + tid;
+    if (r < a.n) a.off[r] = pre + ex[j];
+  }
+  if (tid == 0 && t == n_tiles - 1) *a.total = pre + run;
+}
+
+// -- the expansion ----------------------------------------------------------------
+
+// The row that holds slot s: the last row whose offset is <= s, in [lo, hi].
+__device__ __forceinline__ i64 je_row_of(const i64* off, i64 lo, i64 hi, i64 s) {
+  hi += 1;
+  while (hi - lo > 1) {
+    const i64 mid = (lo + hi) >> 1;
+    if (off[mid] <= s) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ void je_store4_i64(i64* p, const i64 (&v)[JE_SLOTS],
+                                              i64 s, i64 cap) {
+  if (s + JE_SLOTS <= cap) {
+    *(longlong2*)(p + s) = make_longlong2(v[0], v[1]);
+    *(longlong2*)(p + s + 2) = make_longlong2(v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < JE_SLOTS; ++q)
+      if (s + q < cap) p[s + q] = v[q];
   }
 }
 
-__global__ void je_tail(ExpandArgs a) {
+__device__ __forceinline__ void je_store4_u8(unsigned char* p,
+                                             const unsigned char (&v)[JE_SLOTS],
+                                             i64 s, i64 cap) {
+  if (s + JE_SLOTS <= cap) {
+    *(u32*)(p + s) = (u32)v[0] | ((u32)v[1] << 8) | ((u32)v[2] << 16) |
+                     ((u32)v[3] << 24);
+  } else {
+#pragma unroll
+    for (int q = 0; q < JE_SLOTS; ++q)
+      if (s + q < cap) p[s + q] = v[q];
+  }
+}
+
+__global__ void __launch_bounds__(JE_THREADS) je_expand(ExpandArgs a) {
+  __shared__ int s_rel[JE_RMAX + 1];  // staged offsets, less the tile's start
+  __shared__ i64 s_rf, s_rl, s_off0;
+  const int tid = threadIdx.x;
   const i64 total = *a.total;
-  const i64 from = total < a.cap ? total : a.cap;
-  for (i64 s = from + (i64)blockIdx.x * blockDim.x + threadIdx.x; s < a.cap;
-       s += (i64)gridDim.x * blockDim.x) {
-    a.pi[s] = 0;
-    if (a.build) {
-      a.bi[s] = 0;
-      if (a.nohit) a.nohit[s] = 1;
+  const i64 live = total < a.cap ? total : a.cap;
+  const i64 safe_hi = a.nv - 1 > 0 ? a.nv - 1 : 0;
+  const i64 tiles = (a.cap + JE_STILE - 1) / JE_STILE;
+  for (i64 tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const i64 s0 = tile * JE_STILE;
+    const i64 l_end = s0 + JE_STILE < live ? s0 + JE_STILE : live;
+    i64 rf = 0, rl = 0;
+    bool staged = false;
+    if (s0 < live) {  // the same for the whole block
+      if (tid == 0) s_rf = je_row_of(a.off, 0, a.n - 1, s0);
+      if (tid == 32) s_rl = je_row_of(a.off, 0, a.n - 1, l_end - 1);
+      __syncthreads();
+      rf = s_rf;
+      rl = s_rl;
+      const i64 R = rl - rf + 1;
+      staged = R <= JE_RMAX;
+      if (staged) {
+        for (i64 k = tid; k < R; k += JE_THREADS) {
+          const i64 o = a.off[rf + k];
+          s_rel[k] = k == 0 ? 0 : (int)(o - s0);
+          if (k == 0) s_off0 = o;
+        }
+        if (tid == 0) s_rel[R] = JE_STILE;
+      }
+      __syncthreads();
     }
-    a.valid[s] = 0;
-    write_maps(a, s, 0, 0);
+    const i64 sb = s0 + (i64)tid * JE_SLOTS;
+    i64 pi[JE_SLOTS], bi[JE_SLOTS];
+    unsigned char vd[JE_SLOTS], nh[JE_SLOTS];
+    i64 k = 0, row = rf;  // the staged index and the row of the last slot
+#pragma unroll
+    for (int q = 0; q < JE_SLOTS; ++q) {
+      const i64 s = sb + q;
+      pi[q] = 0;
+      bi[q] = 0;
+      vd[q] = 0;
+      nh[q] = 1;
+      if (s >= l_end) continue;
+      i64 off_row;
+      if (staged) {
+        const int t = (int)(s - s0);
+        if (s_rel[k + 1] <= t) {  // past the last slot's row
+          int lo = (int)k + 1, hi = (int)(rl - rf) + 1;
+          while (hi - lo > 1) {
+            const int mid = (lo + hi) >> 1;
+            if (s_rel[mid] <= t) lo = mid; else hi = mid;
+          }
+          k = lo;
+        }
+        row = rf + k;
+        off_row = k == 0 ? s_off0 : s0 + s_rel[k];
+      } else {
+        if (row < rl && a.off[row + 1] <= s) row = je_row_of(a.off, row + 1, rl, s);
+        off_row = a.off[row];
+      }
+      pi[q] = row;
+      if (!a.build) {
+        vd[q] = 1;
+        continue;
+      }
+      const i64 c = a.cnt[row];
+      const i64 w = s - off_row;
+      const i64 cm1 = c - 1 > 0 ? c - 1 : 0;
+      i64 bpos = a.pos0[row] + (w < cm1 ? w : cm1);
+      bpos = bpos < 0 ? 0 : (bpos > safe_hi ? safe_hi : bpos);
+      const i64 b = load_index(a.a1, a.a1_64, bpos);
+      const bool h = w < c && (a.bvalid ? a.bvalid[b] != 0 : true);
+      const bool pv = a.pvalid ? a.pvalid[row] != 0 : true;
+      bi[q] = b;
+      vd[q] = a.left ? pv : (h && pv);
+      nh[q] = !h;
+    }
+    if (sb < a.cap) {
+      je_store4_i64(a.pi, pi, sb, a.cap);
+      je_store4_u8(a.valid, vd, sb, a.cap);
+      if (a.build) {
+        je_store4_i64(a.bi, bi, sb, a.cap);
+        if (a.nohit) je_store4_u8(a.nohit, nh, sb, a.cap);
+      }
+      for (int m = 0; m < a.n_maps; ++m) {
+        const bool side = a.mside[m] != 0;
+        if (a.mbool[m]) {
+          const unsigned char* src = (const unsigned char*)a.msrc[m];
+          unsigned char g[JE_SLOTS];
+#pragma unroll
+          for (int q = 0; q < JE_SLOTS; ++q) g[q] = src[side ? bi[q] : pi[q]];
+          je_store4_u8((unsigned char*)a.mdst[m], g, sb, a.cap);
+        } else {
+          const i64* src = (const i64*)a.msrc[m];
+          i64 g[JE_SLOTS];
+#pragma unroll
+          for (int q = 0; q < JE_SLOTS; ++q) g[q] = src[side ? bi[q] : pi[q]];
+          je_store4_i64((i64*)a.mdst[m], g, sb, a.cap);
+        }
+      }
+    }
+    __syncthreads();  // the next tile restages s_rel
   }
 }
 
 // hdr (int64): [n, cnt, cmask, pvalid, left, build, pos0, a1, a1_64, nv,
-//               bvalid, cap, tile_sums, tile_offs, total, pi, bi, valid,
-//               nohit, count_only, n_maps,
+//               bvalid, cap, off, total, status, status_tiles, epoch,
+//               pi, bi, valid, nohit, count_only, n_maps,
 //               then per map m: src, dst, side, is_bool]
-// tile_sums / tile_offs hold ceil(n / 2048) entries.
+// status (int64) holds 1 + 3 * status_tiles words, zeroed once when it is
+// allocated: the tile counter, then per tile the flag, the aggregate and
+// the inclusive prefix; epoch (>= 1) is new for every call on a status
+// block and grows from call to call in stream order.  off holds n int64
+// (null for a count); the outputs cap entries, 16-byte aligned.
 extern "C" int join_expand_run(const i64* hdr, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   ExpandArgs a;
@@ -217,38 +425,50 @@ extern "C" int join_expand_run(const i64* hdr, void* stream) {
   a.nv = hdr[9];
   a.bvalid = (const unsigned char*)hdr[10];
   a.cap = hdr[11];
-  a.tile_sums = (i64*)hdr[12];
-  a.tile_offs = (i64*)hdr[13];
-  a.total = (i64*)hdr[14];
-  a.pi = (i64*)hdr[15];
-  a.bi = (i64*)hdr[16];
-  a.valid = (unsigned char*)hdr[17];
-  a.nohit = (unsigned char*)hdr[18];
-  const int count_only = (int)hdr[19];
-  a.n_maps = (int)hdr[20];
+  a.off = (i64*)hdr[12];
+  a.total = (i64*)hdr[13];
+  i64* status = (i64*)hdr[14];
+  const i64 status_tiles = hdr[15];
+  a.epoch = (u64)hdr[16];
+  a.pi = (i64*)hdr[17];
+  a.bi = (i64*)hdr[18];
+  a.valid = (unsigned char*)hdr[19];
+  a.nohit = (unsigned char*)hdr[20];
+  const int count_only = (int)hdr[21];
+  a.n_maps = (int)hdr[22];
+  a.ctr = (u64*)status;
+  a.flag = (u64*)(status + 1);
+  a.agg = status + 1 + status_tiles;
+  a.incl = status + 1 + 2 * status_tiles;
+  const i64 n_tiles = (a.n + JE_TILE - 1) / JE_TILE;
   if (a.n_maps < 0 || a.n_maps > JE_MAX_MAPS) return (int)cudaErrorInvalidValue;
-  if (!a.cnt && !a.cmask) return (int)cudaErrorInvalidValue;
-  if (a.build && (!a.cnt || !a.pos0 || !a.a1)) return (int)cudaErrorInvalidValue;
+  // no probe rows: every slot is past the total, and no input is read
+  if (a.n > 0 && (a.build ? (!a.cnt || !a.pos0 || !a.a1) : !a.cmask))
+    return (int)cudaErrorInvalidValue;
+  if (status_tiles < n_tiles || a.epoch < 1)
+    return (int)cudaErrorInvalidValue;
   for (int m = 0; m < a.n_maps; ++m) {
-    const i64* h = hdr + 21 + 4 * m;
+    const i64* h = hdr + 23 + 4 * m;
     a.msrc[m] = (const void*)h[0];
     a.mdst[m] = (void*)h[1];
     a.mside[m] = (int)h[2];
     a.mbool[m] = (int)h[3];
   }
-  const i64 n_tiles = (a.n + JE_TILE - 1) / JE_TILE;
-  cudaError_t e;
-  if (n_tiles > 0) {
-    je_tile_sums<<<(unsigned)n_tiles, TIDB_THREADS, 0, st>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const bool expand = !count_only && a.cap > 0;
+  if (expand) {
+    if (!a.off && a.n > 0) return (int)cudaErrorInvalidValue;
+    const void* outs[4] = {a.pi, a.bi, a.valid, a.nohit};
+    for (int i = 0; i < 4 + a.n_maps; ++i) {
+      const void* p = i < 4 ? outs[i] : a.mdst[i - 4];
+      if ((u64)p & 15) return (int)cudaErrorMisalignedAddress;
+    }
+  } else {
+    a.off = nullptr;
   }
-  je_scan_tiles<<<1, JE_SCAN_THREADS, 0, st>>>(a, n_tiles);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (count_only || a.cap <= 0) return 0;
-  if (n_tiles > 0) {
-    je_expand<<<(unsigned)n_tiles, TIDB_THREADS, 0, st>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-  je_tail<<<grid_for(a.cap), TIDB_THREADS, 0, st>>>(a);
+  je_scan<<<(unsigned)(n_tiles > 0 ? n_tiles : 1), JE_SCAN_THREADS, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !expand) return (int)e;
+  const i64 stiles = (a.cap + JE_STILE - 1) / JE_STILE;
+  je_expand<<<(unsigned)(stiles < 132 * 8 ? stiles : 132 * 8), JE_THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

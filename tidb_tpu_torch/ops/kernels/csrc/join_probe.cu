@@ -16,27 +16,34 @@
 //   join_probe_run  - per probe row: pack its key columns with the index's
 //                     static (min, span), clamping before the multiply and
 //                     excluding NULL or out-of-range keys; look the key up
-//                     in the dense CSR (starts[k], starts[k+1]) or binary-
-//                     search the sorted keys within [0, n_valid) (never
-//                     against the int64.max padding); then, by mode, the
-//                     build row and match flag of a unique build, the
-//                     (start, count) of a non-unique one and the total of
-//                     the counts, or existence; with the join kind's valid
-//                     rows, the left join's no-match map and the valid
-//                     count;
+//                     in the dense CSR (starts[k], starts[k+1]) or search
+//                     the sorted keys within [0, n_valid) (never against
+//                     the int64.max padding); then, by mode, the build row
+//                     and match flag of a unique build, the (start, count)
+//                     of a non-unique one and the total of the counts, or
+//                     existence; with the join kind's valid rows, the left
+//                     join's no-match map and the valid count.  A row
+//                     without a match has pos0 = 0 and bi = 0;
 //   join_finish_run - valid rows, no-match map and count from a match flag
 //                     refined by ON-clause residuals.
 //
 // Bound on the card: memory.  Each probe row reads its key columns, null
 // flags and validity once and writes its outputs once; every lookup into
 // the index (starts, sorted keys, row ids, the build side's validity) is a
-// random read, counted as one 32-byte sector each.  A sorted probe does
-// log2(n_valid) such reads.
+// random read, counted as one 32-byte sector each.
 //
-// Design (simple and correct first): one thread per probe row in a grid-
-// stride loop; the binary search reads the keys straight from device
-// memory (the sorted index of partsupp at SF1 is 6.4 MB and stays in L2);
-// counts reduce through warp shuffles into one atomic per block.
+// Design.  Rows that are invalid, NULL or out of range skip the lookup.
+// The dense probe is one thread a row (two reads of the starts).  The
+// sorted probe is a persistent grid (blocks x SMs at the occupancy the
+// sample allows): each block stages every stride-th sorted key, at most
+// `sample` of them, in shared memory once; a row's lower bound is found in
+// the sample and then in the one segment of stride - 1 keys that it leaves
+// in device memory (an index that fits the sample is searched in shared
+// memory alone), and a count gallops from the lower bound to the upper
+// (1, 2, 4, ... keys, then a binary search), so a hot key costs O(log cnt)
+// reads.  Keys read through a sort order are gathered once per call
+// (jp_gather), so the search reads them contiguously.  Counts reduce
+// through warp shuffles into one atomic per block.
 #include <limits.h>
 
 #include "common.cuh"
@@ -241,6 +248,8 @@ struct ProbeArgs {
   int a0_64;
   i64 dense_span;
   const i64* ord;  // sorted layout read through this order (may be null)
+  i64* sk_buf;     // the keys gathered in sorted order once (with ord)
+  int sample;      // sorted layout: most sample entries a block stages
   const void* a1;
   int a1_64;
   i64 nv;
@@ -256,90 +265,191 @@ struct ProbeArgs {
   i64* count;
 };
 
-__device__ __forceinline__ i64 sorted_at(const ProbeArgs& a, i64 m) {
-  const i64* keys = (const i64*)a.a0;
-  return a.ord ? keys[a.ord[m]] : keys[m];
-}
-
 __device__ __forceinline__ bool kind_valid(int kind, bool pv, bool h) {
   return kind == JK_LEFT ? pv : (kind == JK_ANTI ? (pv && !h) : (pv && h));
 }
 
-__global__ void jp_probe(ProbeArgs a) {
+// Row r's packed key and whether it can match at all: valid, no NULL key
+// column, every column inside its pack range.
+__device__ __forceinline__ bool probe_key(const ProbeArgs& a, i64 r, bool* pv,
+                                          i64* key) {
+  *pv = a.pvalid ? a.pvalid[r] != 0 : true;
+  bool ok = *pv;
+  if (a.packed) {
+    *key = a.key[0][r];
+    return ok;
+  }
+  i64 kk = 0;
+  for (int c = 0; c < a.k; ++c) {
+    const i64 v = wrap_sub(a.key[c][r], a.mn[c]);
+    const bool nl = a.knull[c] ? a.knull[c][r] != 0 : false;
+    ok = ok && !nl && v >= 0 && v < a.span[c];
+    const i64 vc = v < 0 ? 0 : (v > a.span[c] - 1 ? a.span[c] - 1 : v);
+    kk = wrap_add(wrap_mul(kk, a.span[c]), vc);
+  }
+  *key = kk;
+  return ok;
+}
+
+// Row r's outputs from its CSR start p0 and match count c; returns what the
+// row adds to the call's count.  A row with c = 0 writes pos0 = 0 and, in
+// unique mode, bi = 0 without reading the row ids.
+__device__ __forceinline__ i64 probe_emit(const ProbeArgs& a, i64 r, bool pv,
+                                          i64 p0, i64 c, i64 nv) {
+  if (a.mode == JP_COUNT) {
+    a.pos0[r] = c > 0 ? p0 : 0;
+    a.cnt[r] = c;
+    return c;
+  }
+  bool h = c > 0;
+  if (a.mode == JP_UNIQ) {
+    i64 b = 0;
+    if (h) {
+      const i64 safe_hi = nv - 1 > 0 ? nv - 1 : 0;
+      b = load_index(a.a1, a.a1_64, p0 < 0 ? 0 : (p0 > safe_hi ? safe_hi : p0));
+      h = a.bvalid ? a.bvalid[b] != 0 : true;
+    }
+    a.bi[r] = b;
+    a.hit[r] = h;
+  }
+  const bool v = kind_valid(a.kind, pv, h);
+  a.valid[r] = v;
+  if (a.nohit) a.nohit[r] = !h;
+  return v;
+}
+
+__global__ void jp_dense(ProbeArgs a) {
   const i64 nv = a.nv_ptr ? *a.nv_ptr : a.nv;
   i64 local = 0;
   for (i64 r = (i64)blockIdx.x * blockDim.x + threadIdx.x; r < a.n;
        r += (i64)gridDim.x * blockDim.x) {
-    const bool pv = a.pvalid ? a.pvalid[r] != 0 : true;
-    bool ok = pv;
-    i64 key;
-    if (a.packed) {
-      key = a.key[0][r];
-    } else {
-      key = 0;
-      for (int c = 0; c < a.k; ++c) {
-        const i64 v = wrap_sub(a.key[c][r], a.mn[c]);
-        const bool nl = a.knull[c] ? a.knull[c][r] != 0 : false;
-        ok = ok && !nl && v >= 0 && v < a.span[c];
-        const i64 vc = v < 0 ? 0 : (v > a.span[c] - 1 ? a.span[c] - 1 : v);
-        key = wrap_add(wrap_mul(key, a.span[c]), vc);
-      }
-    }
-    i64 p0, c;
-    if (a.layout == 0) {
+    bool pv;
+    i64 key, p0 = 0, c = 0;
+    if (probe_key(a, r, &pv, &key)) {
       const i64 kc = key < 0 ? 0 : (key > a.dense_span - 1 ? a.dense_span - 1 : key);
-      const i64 s0 = load_index(a.a0, a.a0_64, kc);
-      const i64 s1 = load_index(a.a0, a.a0_64, kc + 1);
-      p0 = s0;
-      c = ok ? s1 - s0 : 0;
-    } else {
-      i64 lo = 0, hi = nv;  // first position with key <= sorted
-      while (lo < hi) {
-        const i64 mid = (lo + hi) >> 1;
-        if (sorted_at(a, mid) < key) lo = mid + 1; else hi = mid;
-      }
-      p0 = lo;
-      if (a.mode == JP_UNIQ) {
-        c = (ok && lo < nv && sorted_at(a, lo) == key) ? 1 : 0;
-      } else {
-        i64 l2 = lo, h2 = nv;  // first position with key < sorted
-        while (l2 < h2) {
-          const i64 mid = (l2 + h2) >> 1;
-          if (sorted_at(a, mid) <= key) l2 = mid + 1; else h2 = mid;
-        }
-        c = ok ? l2 - lo : 0;
-      }
+      p0 = load_index(a.a0, a.a0_64, kc);
+      c = load_index(a.a0, a.a0_64, kc + 1) - p0;
     }
-    if (a.mode == JP_COUNT) {
-      a.pos0[r] = p0;
-      a.cnt[r] = c;
-      local += c;
-      continue;
-    }
-    bool h;
-    if (a.mode == JP_UNIQ) {
-      const i64 safe_hi = nv - 1 > 0 ? nv - 1 : 0;
-      const i64 at = p0 < 0 ? 0 : (p0 > safe_hi ? safe_hi : p0);
-      const i64 b = load_index(a.a1, a.a1_64, at);
-      h = c > 0 && (a.bvalid ? a.bvalid[b] != 0 : true);
-      a.bi[r] = b;
-      a.hit[r] = h;
-    } else {
-      h = c > 0;
-    }
-    const bool v = kind_valid(a.kind, pv, h);
-    a.valid[r] = v;
-    if (a.nohit) a.nohit[r] = !h;
-    local += v;
+    local += probe_emit(a, r, pv, p0, c, nv);
   }
   if (a.count) block_add_to(local, a.count);
 }
 
+// The sample's stride: every stride-th sorted key, at most `sample` of them.
+__device__ __forceinline__ i64 sample_stride(i64 nv, int sample) {
+  const i64 s = (nv + sample - 1) / sample;
+  return s > 1 ? s : 1;
+}
+
+// Sorted probe.  Each block stages every stride-th key of [0, n_valid) in
+// shared memory once (a persistent grid, so once per block for many rows);
+// a row's lower bound is searched in the sample, then inside the one
+// segment of stride keys in device memory that the sample leaves; the
+// upper bound gallops from the lower (1, 2, 4, ... keys, then a binary
+// search), so a count costs O(log cnt) reads, a hot key included.  Rows
+// that cannot match skip the search.
+__global__ void __launch_bounds__(TIDB_THREADS) jp_sorted(ProbeArgs a) {
+  extern __shared__ i64 samp[];
+  const i64 nv = a.nv_ptr ? *a.nv_ptr : a.nv;
+  const i64* sk = a.ord ? a.sk_buf : (const i64*)a.a0;
+  const i64 stride = sample_stride(nv, a.sample);
+  const i64 ns = (nv + stride - 1) / stride;  // sample entries
+  for (i64 j = threadIdx.x; j < ns; j += blockDim.x) samp[j] = sk[j * stride];
+  __syncthreads();
+  i64 local = 0;
+  for (i64 r = (i64)blockIdx.x * blockDim.x + threadIdx.x; r < a.n;
+       r += (i64)gridDim.x * blockDim.x) {
+    bool pv;
+    i64 key, p = 0, c = 0;
+    if (probe_key(a, r, &pv, &key) && nv > 0) {
+      i64 lo = 0, hi = ns;  // first sample entry >= key
+      while (lo < hi) {
+        const i64 mid = (lo + hi) >> 1;
+        if (samp[mid] < key) lo = mid + 1; else hi = mid;
+      }
+      // the lower bound lies in ((lo-1)*stride, min(lo*stride, nv)]
+      p = lo * stride < nv ? lo * stride : nv;
+      if (lo > 0 && stride > 1) {
+        i64 l2 = (lo - 1) * stride + 1, h2 = p;
+        while (l2 < h2) {
+          const i64 mid = (l2 + h2) >> 1;
+          if (sk[mid] < key) l2 = mid + 1; else h2 = mid;
+        }
+        p = l2;
+      }
+      const bool found = p < nv && (p == lo * stride && lo < ns ? samp[lo] : sk[p]) == key;
+      if (found && a.mode == JP_COUNT) {
+        i64 good = p, step = 1, bad = nv;  // sk[good] == key; bad: past it
+        while (true) {
+          const i64 q = good + step;
+          if (q >= nv) break;
+          if (sk[q] != key) { bad = q; break; }
+          good = q;
+          step <<= 1;
+        }
+        i64 l3 = good + 1, h3 = bad;  // the first key above, in (good, bad]
+        while (l3 < h3) {
+          const i64 mid = (l3 + h3) >> 1;
+          if (sk[mid] == key) l3 = mid + 1; else h3 = mid;
+        }
+        c = l3 - p;
+      } else {
+        c = found ? 1 : 0;
+      }
+    }
+    local += probe_emit(a, r, pv, p, c, nv);
+  }
+  if (a.count) block_add_to(local, a.count);
+}
+
+// The sorted keys read through an order, gathered once per call.
+__global__ void jp_gather(const i64* keys, const i64* ord, i64 nv,
+                          const i64* nv_ptr, i64* out) {
+  const i64 m = nv_ptr ? *nv_ptr : nv;
+  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < m;
+       i += (i64)gridDim.x * blockDim.x)
+    out[i] = keys[ord[i]];
+}
+
+static int launch_sorted(const ProbeArgs& a, cudaStream_t st) {
+  static size_t opted = 48 * 1024;
+  static int sms = 0, per_sm = -1;
+  static size_t per_sm_for = 0;
+  const size_t shared = (size_t)a.sample * sizeof(i64);
+  cudaError_t e;
+  if (shared > opted) {
+    e = cudaFuncSetAttribute(jp_sorted, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)shared);
+    if (e != cudaSuccess) return (int)e;
+    opted = shared;
+  }
+  if (per_sm < 0 || per_sm_for != shared) {
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+        cudaSuccess)
+      return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, jp_sorted,
+                                                      TIDB_THREADS, shared);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) per_sm = 1;
+    per_sm_for = shared;
+  }
+  const i64 blocks = (a.n + TIDB_THREADS - 1) / TIDB_THREADS;
+  const i64 grid = blocks < (i64)per_sm * sms ? blocks : (i64)per_sm * sms;
+  jp_sorted<<<(unsigned)grid, TIDB_THREADS, shared, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // hdr (int64): [n, k, packed, pvalid, layout, a0, a0_64, dense_span, ord,
-//               a1, a1_64, nv, nv_ptr, mode, kind, bvalid,
-//               bi, hit, valid, nohit, pos0, cnt, count,
+//               sk_buf, sample, a1, a1_64, nv, nv_ptr, mode, kind, bvalid,
+//               bi, hit, valid, nohit, pos0, cnt, count, n_ord,
 //               then per key column c: key, knull, mn, span]
+// Where ord (n_ord entries) is given, sk_buf holds n_ord int64; count is
+// zeroed by the caller.
+#define JP_HDR_KEYS 26
 extern "C" int join_probe_run(const i64* hdr, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   ProbeArgs a;
   a.n = hdr[0];
   a.k = (int)hdr[1];
@@ -351,31 +461,45 @@ extern "C" int join_probe_run(const i64* hdr, void* stream) {
   a.a0_64 = (int)hdr[6];
   a.dense_span = hdr[7];
   a.ord = (const i64*)hdr[8];
-  a.a1 = (const void*)hdr[9];
-  a.a1_64 = (int)hdr[10];
-  a.nv = hdr[11];
-  a.nv_ptr = (const i64*)hdr[12];
-  a.mode = (int)hdr[13];
-  a.kind = (int)hdr[14];
-  a.bvalid = (const unsigned char*)hdr[15];
-  a.bi = (i64*)hdr[16];
-  a.hit = (unsigned char*)hdr[17];
-  a.valid = (unsigned char*)hdr[18];
-  a.nohit = (unsigned char*)hdr[19];
-  a.pos0 = (i64*)hdr[20];
-  a.cnt = (i64*)hdr[21];
-  a.count = (i64*)hdr[22];
+  a.sk_buf = (i64*)hdr[9];
+  a.sample = (int)hdr[10];
+  a.a1 = (const void*)hdr[11];
+  a.a1_64 = (int)hdr[12];
+  a.nv = hdr[13];
+  a.nv_ptr = (const i64*)hdr[14];
+  a.mode = (int)hdr[15];
+  a.kind = (int)hdr[16];
+  a.bvalid = (const unsigned char*)hdr[17];
+  a.bi = (i64*)hdr[18];
+  a.hit = (unsigned char*)hdr[19];
+  a.valid = (unsigned char*)hdr[20];
+  a.nohit = (unsigned char*)hdr[21];
+  a.pos0 = (i64*)hdr[22];
+  a.cnt = (i64*)hdr[23];
+  a.count = (i64*)hdr[24];
+  const i64 n_ord = hdr[25];
   for (int c = 0; c < a.k; ++c) {
-    const i64* h = hdr + 23 + 4 * c;
+    const i64* h = hdr + JP_HDR_KEYS + 4 * c;
     a.key[c] = (const i64*)h[0];
     a.knull[c] = (const unsigned char*)h[1];
     a.mn[c] = h[2];
     a.span[c] = h[3];
   }
   if (a.layout == 0 && a.dense_span < 1) return (int)cudaErrorInvalidValue;
+  if (a.layout == 1 && (a.sample < 1 || (a.ord && !a.sk_buf)))
+    return (int)cudaErrorInvalidValue;
   if (a.n <= 0) return 0;
-  jp_probe<<<grid_for(a.n), TIDB_THREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (a.layout == 0) {
+    jp_dense<<<grid_for(a.n), TIDB_THREADS, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (a.ord) {
+    jp_gather<<<grid_for(a.nv_ptr ? n_ord : a.nv), TIDB_THREADS, 0, st>>>(
+        (const i64*)a.a0, a.ord, a.nv, a.nv_ptr, a.sk_buf);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return launch_sorted(a, st);
 }
 
 // --------------------------------------------------------------------------

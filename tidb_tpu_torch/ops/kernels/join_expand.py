@@ -27,6 +27,7 @@ source note).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -34,15 +35,54 @@ import torch
 #: launches of the CUDA kernel (chip_smoke.py reads it to prove the path)
 LAUNCHES = [0]
 
-#: csrc/join_expand.cu JE_MAX_MAPS and its tile of rows
+#: csrc/join_expand.cu: JE_MAX_MAPS, the rows a scan tile takes, the
+#: slots an expansion tile writes, and the most blocks of the expansion's
+#: grid-stride loop
 MAX_MAPS = 16
-TILE = 2048
+TILE = 8192
+SLOT_TILE = 1024
+EXPAND_BLOCKS = 132 * 8
 
 _FN = [None]
 
 
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
+
+
+def launch_plan(n: int, cap: int, count_only: bool = False) -> dict:
+    """The launches of one call, as ``join_expand_run`` makes them: the
+    scan's blocks (one a tile of :data:`TILE` rows, at least one, which
+    writes a total of 0 for no rows), and unless the call only counts or
+    has no slots, the expansion's blocks over tiles of :data:`SLOT_TILE`
+    slots."""
+    scan_tiles = -(-n // TILE)
+    plan = {"scan_tiles": scan_tiles, "scan_blocks": max(scan_tiles, 1),
+            "slot_tiles": 0, "expand_blocks": 0, "launches": 1}
+    if not count_only and cap > 0:
+        slot_tiles = -(-cap // SLOT_TILE)
+        plan.update(slot_tiles=slot_tiles,
+                    expand_blocks=min(slot_tiles, EXPAND_BLOCKS),
+                    launches=2)
+    return plan
+
+
+class _Status:
+    """The scan's status block on one stream: a tile counter, then per
+    tile a flag, the aggregate and the inclusive prefix (int64 words),
+    zeroed once when allocated and grown to the largest call.  Every call
+    takes a new epoch, which its status words carry, so no launch clears
+    them (the scan's last tile sets the counter back to 0); the lock keeps
+    epochs in stream order across threads."""
+
+    __slots__ = ("words", "tiles", "epoch")
+
+    def __init__(self):
+        self.words, self.tiles, self.epoch = None, 0, 0
+
+
+_STATUS: dict = {}
+_STATUS_LOCK = threading.Lock()
 
 
 def expand_plain(cnt, pos0, pvalid, a1, nv, bvalid, cap, left=False,
@@ -138,14 +178,15 @@ def _run_cuda(cnt, cmask, pos0, pvalid, a1, nv, bvalid, cap, left,
         if m.dtype not in (torch.int64, torch.bool):
             raise TypeError("join_expand: maps must be int64 or bool")
     e = dict(device=dev)
-    n_tiles = (n + TILE - 1) // TILE
-    tiles = torch.empty(max(2 * n_tiles, 1), dtype=torch.int64, **e)
+    plan = launch_plan(n, cap, count_only)
     total = torch.empty(1, dtype=torch.int64, **e)
     build_side = cmask is None
     out = {"total": total[0]}
     hdr_out = [0, 0, 0, 0]
     dsts = []
-    if not count_only:
+    off = None
+    if plan["launches"] == 2:
+        off = torch.empty(n, dtype=torch.int64, **e)
         pi = torch.empty(cap, dtype=torch.int64, **e)
         valid = torch.empty(cap, dtype=torch.bool, **e)
         out["pi"], out["valid"] = pi, valid
@@ -157,19 +198,32 @@ def _run_cuda(cnt, cmask, pos0, pvalid, a1, nv, bvalid, cap, left,
         hdr_out = [_ptr(pi), _ptr(bi), _ptr(valid), _ptr(nohit)]
         dsts = [torch.empty(cap, dtype=m.dtype, **e) for m, _s in maps]
         out["maps"] = dsts
-    hdr = [n, _ptr(cnt), _ptr(cmask), _ptr(pvalid), int(bool(left)),
-           int(build_side), _ptr(pos0), _ptr(a1),
-           int(a1 is not None and a1.dtype == torch.int64), int(nv or 0),
-           _ptr(bvalid), int(cap), tiles.data_ptr(),
-           tiles.data_ptr() + 8 * n_tiles, total.data_ptr()] + hdr_out + [
-        int(bool(count_only)), 0 if count_only else len(maps)]
-    if not count_only:
+    elif not count_only:  # no slots
+        out["pi"] = torch.empty(0, dtype=torch.int64, **e)
+        out["valid"] = torch.empty(0, dtype=torch.bool, **e)
+        if build_side:
+            out["bi"] = torch.empty(0, dtype=torch.int64, **e)
+            out["nohit"] = torch.empty(0, dtype=torch.bool, **e)
+        out["maps"] = [torch.empty(0, dtype=m.dtype, **e) for m, _s in maps]
+    stream = torch.cuda.current_stream(dev)
+    with _STATUS_LOCK:
+        st = _STATUS.setdefault((dev, stream.cuda_stream), _Status())
+        need = max(plan["scan_tiles"], 1)
+        if st.tiles < need:
+            st.tiles = max(need, 2 * st.tiles)
+            st.words = torch.zeros(1 + 3 * st.tiles, dtype=torch.int64, **e)
+        st.epoch += 1
+        hdr = [n, _ptr(cnt), _ptr(cmask), _ptr(pvalid), int(bool(left)),
+               int(build_side), _ptr(pos0), _ptr(a1),
+               int(a1 is not None and a1.dtype == torch.int64),
+               int(nv or 0), _ptr(bvalid), int(cap), _ptr(off),
+               total.data_ptr(), st.words.data_ptr(), st.tiles, st.epoch
+               ] + hdr_out + [int(plan["launches"] == 1), len(dsts)]
         for (m, side), d in zip(maps, dsts):
             hdr += [m.data_ptr(), d.data_ptr(), side,
                     int(m.dtype == torch.bool)]
-    hdr = np.asarray(hdr, dtype=np.int64)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _kernel()(hdr.ctypes.data, ctypes.c_void_p(stream))
+        hdr = np.asarray(hdr, dtype=np.int64)
+        rc = _kernel()(hdr.ctypes.data, ctypes.c_void_p(stream.cuda_stream))
     build.check(rc, "join_expand_run")
     LAUNCHES[0] += 1
     return out
@@ -207,7 +261,7 @@ def compact(mask, cap, maps=()):
 
 def count(mask):
     """The number of True entries of the bool `mask`, as a 0-d int64 on its
-    device (the scan's first two passes)."""
+    device (one launch: the scan alone)."""
     if mask.device.type == "cpu":
         return mask.sum()
     return _run_cuda(None, mask, None, None, None, 0, None, 0, False, (), (),

@@ -27,11 +27,15 @@ Index arrays (CSR starts, row ids) are taken as int32 or int64, as
 ``executor/join_index.py`` builds them; keys and counts are int64,
 flags bool.  Sorted lookups search ``[0, n_valid)`` only, so the int64.max
 padding of the sorted keys is never compared against (a real key may
-equal int64.max).
+equal int64.max).  A row without a match (``cnt = 0``) has ``pos0 = 0``
+and, in ``uniq`` mode, ``bi = 0``: rows that are invalid, NULL or out of
+range are never looked up (the reference leaves both arbitrary).
 
 Bound on the card: memory — each probe row's key columns, null flags and
 validity read once, its outputs written once, and every index lookup a
-random read of one 32-byte sector (a sorted probe does log2(n_valid)).
+random read of one 32-byte sector.  The sorted probe searches a sample of
+:data:`SAMPLE` keys in shared memory first, then one segment in device
+memory, and gallops to a count (``csrc/join_probe.cu``).
 """
 
 from __future__ import annotations
@@ -46,6 +50,12 @@ LAUNCHES = [0]
 
 #: csrc/join_probe.cu JP_MAX_KEYS
 MAX_KEYS = 8
+
+#: sorted keys a block of the sorted probe stages in shared memory (8
+#: bytes each), read at each call: chip_smoke.py times the candidates at
+#: Q9's and the mesh's shapes, where 1024 tied 512 and 2048 and beat 4096
+#: and 16384 (PERF.md §6)
+SAMPLE = 1024
 
 MODES = {"uniq": 0, "count": 1, "exists": 2}
 KINDS = {"inner": 0, "left": 1, "semi": 2, "anti": 3}
@@ -237,20 +247,31 @@ def probe_plain(keys, knulls, pvalid, packs, a0, a1, nv, layout, mode,
         else:
             hi = torch.searchsorted(sk, key, right=True)
             cnt = torch.where(ok, hi - lo, 0)
+    matched = cnt > 0
     if mode == "count":
-        return {"pos0": pos0, "cnt": cnt, "count": cnt.sum()}
+        return {"pos0": torch.where(matched, pos0, 0), "cnt": cnt,
+                "count": cnt.sum()}
     out = {}
     if mode == "uniq":
         at = pos0.clamp(0, max(nv - 1, 0))
-        bi = a1[at].to(torch.int64)
-        h = cnt > 0
+        bi = torch.where(matched, a1[at].to(torch.int64), 0)
+        h = matched
         if bvalid is not None:
             h = h & bvalid[bi]
         out["bi"], out["hit"] = bi, h
     else:
-        h = cnt > 0
+        h = matched
     out.update(zip(("valid", "nohit", "count"), finish_plain(pv, h, kind)))
     return out
+
+
+def sample_stride(nv: int, sample: int) -> tuple:
+    """(stride, entries) of the sorted probe's shared-memory sample over
+    `nv` sorted keys: every stride-th key, at most `sample` of them
+    (``csrc/join_probe.cu sample_stride``).  A row's lower bound is then
+    searched in the sample and in one segment of ``stride - 1`` keys."""
+    stride = max(-(-nv // sample), 1)
+    return stride, -(-nv // stride)
 
 
 def probe(keys, knulls, pvalid, packs, a0, a1, nv, *, layout, mode,
@@ -261,12 +282,13 @@ def probe(keys, knulls, pvalid, packs, a0, a1, nv, *, layout, mode,
     (bool, or None for no NULLs); packs: the index's ``(mn, span)`` per
     column, or None when ``keys[0]`` is already the packed key (its
     validity in `pvalid`); a0: the dense CSR starts (span+1 entries) or
-    the sorted keys; order: read the sorted keys as ``a0[order[m]]``; a1:
-    the row ids (``uniq`` only); nv: n_valid, a host int or a 0-d int64
-    tensor on the device; bvalid: the build relation's validity (``uniq``).
-    Returns a dict: ``uniq`` → bi, hit, valid, nohit, count; ``count`` →
-    pos0, cnt and count, the total of cnt; ``exists`` → valid, nohit,
-    count (count a 0-d int64: the valid rows, or the total of cnt)."""
+    the sorted keys; order: read the sorted keys as ``a0[order[m]]``
+    (gathered once a call); a1: the row ids (``uniq`` only); nv: n_valid,
+    a host int or a 0-d int64 tensor on the device; bvalid: the build
+    relation's validity (``uniq``).  Returns a dict: ``uniq`` → bi, hit, valid, nohit,
+    count; ``count`` → pos0, cnt and count, the total of cnt; ``exists`` →
+    valid, nohit, count (count a 0-d int64: the valid rows, or the total
+    of cnt).  A row without a match has ``pos0 = 0`` and ``bi = 0``."""
     _check_keys(keys, "probe")
     knulls = list(knulls) if knulls else [None] * len(keys)
     if keys[0].device.type == "cpu":
@@ -313,14 +335,17 @@ def probe(keys, knulls, pvalid, packs, a0, a1, nv, *, layout, mode,
             outs["hit"] = torch.empty(n, dtype=torch.bool, **e)
         outs["valid"] = torch.empty(n, dtype=torch.bool, **e)
         outs["nohit"] = torch.empty(n, dtype=torch.bool, **e)
+    sk_buf = (torch.empty(order.shape[0], dtype=torch.int64, **e)
+              if order is not None and layout != "dense" else None)
     hdr = [n, len(keys), int(packs is None), _ptr(pvalid),
            0 if layout == "dense" else 1, _ptr(a0), a0_64,
-           int(dense_span or 0), _ptr(order), _ptr(a1), a1_64,
-           0 if nv_t is not None else int(nv), _ptr(nv_t), MODES[mode],
-           KINDS[kind], _ptr(bvalid), _ptr(outs.get("bi")),
+           int(dense_span or 0), _ptr(order), _ptr(sk_buf), int(SAMPLE),
+           _ptr(a1), a1_64, 0 if nv_t is not None else int(nv), _ptr(nv_t),
+           MODES[mode], KINDS[kind], _ptr(bvalid), _ptr(outs.get("bi")),
            _ptr(outs.get("hit")), _ptr(outs.get("valid")),
            _ptr(outs.get("nohit")), _ptr(outs.get("pos0")),
-           _ptr(outs.get("cnt")), _ptr(cnt1)]
+           _ptr(outs.get("cnt")), _ptr(cnt1),
+           0 if order is None else order.shape[0]]
     packs = packs if packs is not None else [(0, 1)] * len(keys)
     for c, (d, (mn, span)) in enumerate(zip(keys, packs)):
         hdr += [_ptr(d), _ptr(knulls[c]), int(mn), int(span)]
