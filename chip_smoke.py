@@ -78,7 +78,17 @@ Phases, each fatal on failure:
    decimal order key with peers, ranks, cume_dist, AVG, MIN, MAX and a
    DOUBLE sum), and a 1.5M-partition window: K10 against its plain
    version on each one's full captured inputs (W2, W4, 1.5M partitions;
-   integers exact, floats rtol 1e-9 / atol 1e-12), K4's window order on
+   integers exact, floats rtol 1e-9 / atol 1e-12), each ``[K10]`` line
+   with one call's launches and copies as the CUDA runtime's calls on
+   the host count them (at most 3 launches, no copy), its device ms and
+   device operations (null where the device trace missed launches) and
+   host issue ms, its device time by kernel, its bound over the outputs
+   it delivers beside the figure over the plain version's outputs (a
+   NULL array a function) and a bound that writes each output row as random 32-byte
+   sectors, torch's ``index_put_`` of rows shaped like its outputs
+   through the window's order (the scatter alone), and the copy back's
+   concatenation (``device_exec._fetch``'s device part) in K10's layout
+   and in the plain version's; K4's window order on
    W2 against torch.sort(stable=True) of the packed key, K4's time, passes
    and bits per word on W2 and W4; then, every
    launch counter set to 0, W1-W4 on the device engine, each launching
@@ -1894,21 +1904,39 @@ def is_k4_kernel(name):
     return name.split("(")[0].split("<")[0].split()[-1].startswith("sk_")
 
 
-def device_profile(fn, calls=10):
+#: the CUDA runtime's calls that launch a kernel or copy memory, by the
+#: start of their names
+RUNTIME_LAUNCH = ("cudaLaunch", "cuLaunch")
+RUNTIME_COPY = ("cudaMemcpy", "cuMemcpy")
+
+
+def device_profile(fn, calls=10, runtime=None):
     """{name: (device ms, operations)} of the kernels, fills and copies one
     call of `fn` runs: torch.profiler over `calls` calls after a warm-up
     call, averaged (the profiler can drop the first launch of its
-    window)."""
+    window).  `runtime`, a dict: the host's side is recorded too
+    (ProfilerActivity.CPU), and the dict gets {name: calls a call} of the
+    CUDA runtime's launch and copy calls, which are counted on the host
+    as they are made, whatever the device trace keeps."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA]
+    if runtime is not None:
+        acts.append(ProfilerActivity.CPU)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
+        if runtime is not None:
+            if e.key.startswith(RUNTIME_LAUNCH + RUNTIME_COPY):
+                runtime[e.key] = runtime.get(e.key, 0.0) + e.count / calls
+            if e.device_type == DeviceType.CPU:
+                continue  # a host op: its kernels are counted on their own
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -1933,16 +1961,23 @@ def host_issue_ms(fn, calls=20):
     return total / calls * 1e3
 
 
-def call_split(fn):
+def call_split(fn, prof=None, runtime=None):
     """One call of `fn` split: (device ms, device operations — kernels,
-    fills and copies — per call, host ms to issue it)."""
-    prof = device_profile(fn)
-    return (sum(v[0] for v in prof.values()),
-            sum(v[1] for v in prof.values()), host_issue_ms(fn))
+    fills and copies — per call, host ms to issue it).  `prof`, a dict:
+    gets device_profile's {name: (ms, operations)}; `runtime`: as
+    device_profile's."""
+    got = device_profile(fn, runtime=runtime)
+    if prof is not None:
+        prof.update(got)
+    return (sum(v[0] for v in got.values()),
+            sum(v[1] for v in got.values()), host_issue_ms(fn))
 
 
 def split_text(split):
     dev_ms, ops, host = split
+    if dev_ms is None:
+        return (f"device ms not measured (the device trace missed "
+                f"launches), host issue {host:.3f} ms")
     return (f"device {dev_ms:.3f} ms in {ops:g} operations a call, host "
             f"issue {host:.3f} ms")
 
@@ -2257,7 +2292,7 @@ def compare_window(out_k, out_p, funcs, what):
     return err, mag
 
 
-def window_bound_ms(ev, outs):
+def window_bound_ms(ev, outs, scattered=False):
     """Least time of K10 on one window: the sorted order read once; each
     array K10 reads read once through it — a key's data and NULL flags,
     an argument's NULL flags, and its data only where a SUM, MIN or MAX
@@ -2265,7 +2300,12 @@ def window_bound_ms(ev, outs):
     row for a data array and its own size for a NULL-flag array (one
     byte a row: 8 MiB at 2^23 rows, held in the 50 MB L2); every output
     written once.  Without an order (no keys) the reads are
-    sequential."""
+    sequential.  `scattered`: the outputs' values written to input order
+    as random 32-byte sectors, a row's values packed together (a second
+    bound, printed beside the first).  Given K10's outputs, the NULL
+    flags of the functions that are never NULL are one array, counted
+    once; given the plain version's, an array a function (the figure
+    the earlier kernel was held to)."""
     nb, idx = ev["nb"], ev["idx"]
     data = {k[0].data_ptr(): k[0] for k in ev["keys"]}
     flags = {k[1].data_ptr(): k[1] for k in ev["keys"]}
@@ -2279,31 +2319,133 @@ def window_bound_ms(ev, outs):
     moved = (8 * nb if idx is not None else 0)
     moved += sum(nb * (SECTOR if idx is not None else d.element_size())
                  for d in data.values()) + nb * len(flags)
-    moved += nbytes([t for pair in outs for t in pair])
+    if scattered and idx is not None:
+        moved += (nb * SECTOR * -(-8 * len(outs) // SECTOR)
+                  + nbytes([nl for _d, nl in outs]))
+    else:
+        moved += nbytes([t for pair in outs for t in pair])
     return moved / HBM_BYTES_PER_S * 1e3
 
 
-def check_window_kernel(name, ev):
-    """K10 against its plain version on one window's full inputs, timed
-    beside its bound and one torch.cumsum over the same rows."""
+def k10_scatter_ms(ev):
+    """torch's ``index_put_`` of rows shaped like K10's outputs (its int64
+    rows and its NULL-flag rows, ``window_scan.output_layout``) through the
+    window's order: what the random row scatter alone costs on this card
+    (a yardstick, not the same function; None without an order)."""
     import torch
+    from tidb_tpu_torch.ops.kernels import window_scan
+    nb, idx = ev["nb"], ev["idx"]
+    if idx is None:
+        return None
+    lay = window_scan.output_layout(window_scan.lane_groups(
+        ev["funcs"], [d.is_floating_point() for d, _n in ev["args"]]))
+    order = (idx[:nb],)
+    rows = torch.zeros((nb, lay["n_data"]), dtype=torch.int64,
+                       device=idx.device)
+    dst = torch.empty_like(rows)
+    ms = cuda_ms(lambda: dst.index_put_(order, rows))
+    if lay["n_null"]:
+        flags = torch.zeros((nb, lay["n_null"]), dtype=torch.bool,
+                            device=idx.device)
+        fdst = torch.empty_like(flags)
+        ms += cuda_ms(lambda: fdst.index_put_(order, flags))
+    return ms
+
+
+def fetch_cat_ms(outs, n):
+    """The device part of ``device_exec._fetch`` on the first `n` rows of
+    window outputs (each flattened to int64 and concatenated into one
+    buffer), timed with CUDA events: what the outputs' layout costs the
+    copy back."""
+    import torch
+
+    def flat():
+        parts = []
+        for pair in outs:
+            for t in pair:
+                t = t[:n].reshape(-1)
+                parts.append(t.view(torch.int64) if t.dtype == torch.float64
+                             else t if t.dtype == torch.int64
+                             else t.to(torch.int64))
+        return torch.cat(parts)
+    return cuda_ms(flat)
+
+
+def check_window_kernel(name, ev, need_trace=True):
+    """K10 against its plain version on one window's full inputs, timed
+    beside its bound and one torch.cumsum over the same rows; its
+    launches and copies counted from the CUDA runtime's calls on the
+    host.  `need_trace`: fail too where the device trace records no
+    ``ws_scan`` (it records none at SF10's shape, whose launches the
+    runtime's calls still count)."""
+    import torch
+    from tidb_tpu_torch.ops.kernels import window_scan
     out_k, out_p = k10_call(ev), k10_call(ev, plain=True)
     torch.cuda.synchronize()
     err, mag = compare_window(out_k, out_p, ev["funcs"], name)
     ms = cuda_ms(lambda: k10_call(ev))
     plain_ms = cuda_ms(lambda: k10_call(ev, plain=True))
+    # the function's outputs as K10 delivers them; the plain version's
+    # (a NULL array a function), the earlier kernel's figure, beside it
     bound = window_bound_ms(ev, out_k)
+    bound_plain = window_bound_ms(ev, out_p)
+    bound_sc = window_bound_ms(ev, out_k, scattered=True)
+    cat_k = fetch_cat_ms(out_k, ev["n_live"])
+    cat_p = fetch_cat_ms(out_p, ev["n_live"])
+    del out_p
     z = ev["keys"][0][0]
     scan_ms = cuda_ms(lambda: torch.cumsum(z, 0))
+    scatter = k10_scatter_ms(ev)
+    # the launches window_scan.launch_plan counts (a scan and a tail a
+    # lane group), at most 3, and no copy; counted from the runtime's
+    # calls on the host, the device trace's kernels beside them
+    plan = window_scan.launch_plan(ev["nb"], window_scan.lane_groups(
+        ev["funcs"], [d.is_floating_point() for d, _n in ev["args"]]))
+    prof, runtime = {}, {}
+    split = call_split(lambda: k10_call(ev), prof, runtime)
+    launches = sum(v for k, v in runtime.items()
+                   if k.startswith(RUNTIME_LAUNCH))
+    copies = sum(v for k, v in runtime.items() if k.startswith(RUNTIME_COPY))
+    want = min(plan["launches"], 3)
+    traced = any(k.startswith("ws_scan") for k in prof)
+    if launches == 0 or (need_trace and not traced):
+        fail(f"K10 {name}: no launch recorded (runtime {runtime}, device "
+             f"trace {sorted(prof)}): the launches cannot be counted")
+    if (launches > want + 0.01 or copies
+            or any(not k.startswith("ws_") for k in prof)):
+        fail(f"K10 {name}: {launches:g} launches and {copies:g} copies a "
+             f"call (runtime {runtime}); at most {want} launches and no "
+             "copy")
+    if split[1] < plan["launches"] - 0.01:
+        # the device trace missed launches: its sums are short
+        split = (None, None, split[2])
+    by_name = ", ".join(f"{k.split('(')[0]} {kms:.3f} ms x{ops:g}"
+                        for k, (kms, ops) in sorted(prof.items(),
+                                                    key=lambda t: -t[1][0]))
     funcs = ", ".join(f for f, _a in ev["funcs"])
     log(f"[K10] {name}: nb={ev['nb']}, n_live={ev['n_live']}, "
         f"{ev['n_part']} partition + {len(ev['keys']) - ev['n_part']} "
         f"order keys, {len(ev['args'])} arguments, functions [{funcs}]: "
         f"max abs err {err!r} (largest |float output| {mag!r}); "
         f"{ms:.3f} ms (plain {plain_ms:.3f} ms, "
-        f"bound {bound:.4f} ms; one torch.cumsum over the rows "
-        f"{scan_ms:.3f} ms)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        f"bound {bound:.4f} ms (over the plain version's outputs, a NULL "
+        f"array a function: {bound_plain:.4f} ms), bound with scattered "
+        f"output rows {bound_sc:.4f} ms; one torch.cumsum over the rows "
+        f"{scan_ms:.3f} ms; torch index_put_ of its output rows through "
+        f"the order {scatter if scatter is None else round(scatter, 3)} "
+        f"ms); {split_text(split)}; the runtime's calls {launches:g} "
+        f"launches and {copies:g} copies a call (launch_plan "
+        f"{plan['launches']})")
+    log(f"[K10] {name} by kernel: {by_name or 'nothing recorded'}")
+    log(f"[K10] {name} the copy back's concatenation of the "
+        f"{ev['n_live']} live rows (device_exec._fetch's device part): "
+        f"{cat_k:.3f} ms in K10's row-major layout, {cat_p:.3f} ms in "
+        f"contiguous arrays (the plain version's layout, the earlier "
+        f"kernel's)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                device_ms=split[0], device_ops_per_call=split[1],
+                host_ms=split[2], index_put_ms=scatter,
+                fetch_cat_ms=cat_k, fetch_cat_plain_ms=cat_p)
 
 
 def window_stage_ms(ev):
@@ -2493,7 +2635,7 @@ def window_sf10(s, n_rows, supp_counts, report):
         fail("sf10 window w2: the device window never ran")
     log(f"[window] sf10 warm-up w2: {time.perf_counter() - t0:.3f} s")
     ev = cap.last
-    check_window_kernel("w2 (sf10)", ev)
+    check_window_kernel("w2 (sf10)", ev, need_trace=False)
     lib_ms = check_window_order(ev)
     k2, k4, k10, d2h = window_stage_ms(ev)
     keys = ev["keys"]
@@ -3243,7 +3385,11 @@ def main(argv=None) -> int:
              "ms_sorted", "plain_ms_sorted", "bound_ms_sorted",
              "searchsorted_ms", "device_ms_sorted",
              "device_ops_per_call_sorted", "host_ms_sorted", "ms_mesh",
-             "plain_ms_mesh", "bound_ms_mesh", "repeat_interleave_ms")
+             "plain_ms_mesh", "bound_ms_mesh", "repeat_interleave_ms",
+             # K10: torch's index_put_ of rows shaped like its outputs;
+             # the copy back's concatenation in its layout and in the
+             # plain version's
+             "index_put_ms", "fetch_cat_ms", "fetch_cat_plain_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report.values()]}))

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from tidb_tpu_torch.ops.kernels import expr_vm, groupby_agg, sort_topk
+from tidb_tpu_torch.ops.kernels import (expr_vm, groupby_agg, sort_topk,
+                                        window_scan)
 
 pytestmark = pytest.mark.cuda
 
@@ -491,6 +492,184 @@ def test_window_scan_matches_plain(dev, ordered):
                                  dev)
     for (kd, kn), (pd, pn) in zip(k, p):
         assert torch.equal(kd, pd) and torch.equal(kn, pn)
+
+
+#: every window function over four arguments: huge ints that wrap,
+#: doubles, all NULL, and doubles among NaN, +-inf and -0.0
+K10_FUNCS = [("row_number", None), ("rank", None), ("dense_rank", None),
+             ("percent_rank", None), ("cume_dist", None), ("count", 0),
+             ("sum", 0), ("min", 0), ("max", 0), ("sum", 1), ("min", 1),
+             ("max", 1), ("count", 2), ("sum", 2), ("max", 2), ("count", 3),
+             ("sum", 3), ("min", 3), ("max", 3)]
+
+
+def _k10_inputs(dev, seed, nb, n_live, part_hi=(40, 3), order_hi=(7, 4),
+                key_null=(0.05, 0.1), sort=True):
+    """Keys and arguments for K10 (see K10_FUNCS); part_hi / order_hi:
+    the distinct values of each partition / order key (0 drops the key;
+    an int key takes values below its bound, a double key as many of
+    -0.0, 0.0, 1.5, NaN, inf, -inf, -2.5, 7.25); key_null: the share of
+    NULL partition and order keys.  Sorted by K4's window order, or in
+    input order (idx None) without `sort`."""
+    rng = np.random.default_rng(seed)
+    floats = np.array([-0.0, 0.0, 1.5, np.nan, np.inf, -np.inf, -2.5, 7.25])
+
+    def col(vals, p_null):
+        return (_up(vals, dev), _up(rng.random(nb) < p_null, dev))
+
+    def keys(his, p_null):
+        out = []
+        for k, hi in enumerate(his):
+            if not hi:
+                continue
+            vals = (rng.integers(0, hi, nb) if k % 2 == 0
+                    else rng.choice(floats[:hi], nb))
+            out.append(col(vals, p_null))
+        return out
+
+    part, order = keys(part_hi, key_null[0]), keys(order_hi, key_null[1])
+    args = [col(rng.integers(-2**62, 2**62, nb), 0.2),
+            col(rng.standard_normal(nb) * 1e6, 0.2),
+            col(np.zeros(nb, np.int64), 1.0),
+            col(rng.choice(floats, nb), 0.3)]
+    ks = part + order
+    idx = None
+    if sort and ks:
+        idx = sort_topk.window_order(
+            [k[0] for k in ks], [k[1] for k in ks],
+            [False] * len(part) + [k % 2 == 1 for k in range(len(order))],
+            nb, n_live)
+    return part, order, args, idx
+
+
+def _k10_check(dev, nb, n_live, idx, part, order, args, funcs=K10_FUNCS):
+    """K10 against its plain version on the card: NULL flags and integers
+    exact, doubles within rtol 1e-9 / atol 1e-12 (float sums scan in
+    another order), NaN where the plain version has NaN."""
+    from tidb_tpu_torch.ops.kernels import window_scan
+    before = window_scan.LAUNCHES[0]
+    k = window_scan.run(nb, n_live, idx, part, order, args, funcs, dev)
+    p = window_scan.window_plain(nb, n_live, idx, part, order, args, funcs,
+                                 dev)
+    torch.cuda.synchronize()
+    assert window_scan.LAUNCHES[0] == before + 1
+    for (name, a), (kd, kn), (pd, pn) in zip(funcs, k, p):
+        assert kd.dtype == pd.dtype and kd.shape == pd.shape == (nb,)
+        assert torch.equal(kn, pn), (name, a)
+        x, y = kd[~kn], pd[~pn]
+        if x.is_floating_point():
+            torch.testing.assert_close(x, y, rtol=1e-9, atol=1e-12,
+                                       equal_nan=True, msg=f"{name} {a}")
+        else:
+            assert torch.equal(x, y), (name, a)
+
+
+#: K10's tile: the sorted rows one block of its scan takes
+T = window_scan.TILE
+
+
+@pytest.mark.parametrize("nb", [T - 1, T, T + 1, 3 * T + 77],
+                         ids=["below", "at", "above", "ragged"])
+def test_window_scan_tile_edges(dev, nb):
+    """One tile less a row, one tile, one tile and a row, and a ragged
+    multiple of K10's tile."""
+    part, order, args, idx = _k10_inputs(dev, 21, nb, nb - 13)
+    _k10_check(dev, nb, nb - 13, idx, part, order, args)
+
+
+@pytest.mark.parametrize("case", ["no_keys", "constant_key",
+                                  "constant_key_ordered"])
+def test_window_scan_one_partition(dev, case):
+    """count(*) over (): one partition of nb rows (n_live == nb), whose
+    frame ends in the last tile for every row; with one constant key, and
+    with an order key of few values (peer groups over many tiles)."""
+    nb = 40 * T + 5
+    part_hi = (0, 0) if case == "no_keys" else (1, 0)
+    order_hi = (3, 0) if case == "constant_key_ordered" else (0, 0)
+    part, order, args, idx = _k10_inputs(dev, 22, nb, nb, part_hi, order_hi,
+                                         key_null=(0.0, 0.0))
+    _k10_check(dev, nb, nb, idx, part, order, args)
+
+
+@pytest.mark.parametrize("part_hi, order_hi", [
+    ((3, 0), (5, 0)), ((2, 2), (0, 3)), ((7, 0), (0, 0)), ((1, 0), (2, 0)),
+], ids=["big_parts", "float_keys", "no_order", "few_peers"])
+def test_window_scan_segments_straddle_tiles(dev, part_hi, order_hi):
+    """Partitions and peer groups of thousands of rows, across many tile
+    edges, NULL and NaN keys among them."""
+    nb, n_live = 25 * T + 999, 25 * T + 500
+    part, order, args, idx = _k10_inputs(dev, 23, nb, n_live, part_hi,
+                                         order_hi)
+    _k10_check(dev, nb, n_live, idx, part, order, args)
+
+
+@pytest.mark.parametrize("n_live", [T, 4 * T, 4 * T + 1, 5 * T],
+                         ids=["first_edge", "edge", "edge_plus_1", "nb"])
+def test_window_scan_n_live_at_tile_edges(dev, n_live):
+    nb = 5 * T
+    part, order, args, idx = _k10_inputs(dev, 24, nb, n_live, (4, 0), (3, 0))
+    _k10_check(dev, nb, n_live, idx, part, order, args)
+
+
+def test_window_scan_all_null_keys_and_arguments(dev):
+    """Every key NULL (one partition, one peer group), every argument
+    NULL: counts 0, sums, MIN and MAX NULL."""
+    nb = 9 * T + 3
+    part, order, args, idx = _k10_inputs(dev, 25, nb, nb - 2,
+                                         key_null=(1.0, 1.0))
+    args = [(d, torch.ones_like(nl)) for d, nl in args]
+    _k10_check(dev, nb, nb - 2, idx, part, order, args)
+
+
+def test_window_scan_int_sums_wrap(dev):
+    """Running int64 sums of values near 2^62 wrap, as int64 does."""
+    nb = 6 * T + 1
+    part, order, args, idx = _k10_inputs(dev, 26, nb, nb, (2, 0), (0, 0))
+    big = torch.full((nb,), 2**62 + 12345, dtype=torch.int64, device=dev)
+    args[0] = (big, torch.zeros(nb, dtype=torch.bool, device=dev))
+    _k10_check(dev, nb, nb, idx, part, order, args)
+
+
+def test_window_scan_lane_groups(dev):
+    """A window whose lanes pass one block's shared memory runs in lane
+    groups, one pass a group, with the same results."""
+    nb, n_live = 11 * T + 17, 11 * T
+    part, order, args, idx = _k10_inputs(dev, 27, nb, n_live, (30, 0),
+                                         (5, 0))
+    args = args * 3
+    funcs = [("percent_rank", None), ("dense_rank", None)] + [
+        (f, a) for a in range(len(args)) for f in ("sum", "min", "max")]
+    groups = window_scan.lane_groups(
+        funcs, [d.is_floating_point() for d, _n in args])
+    assert len(groups) > 1
+    _k10_check(dev, nb, n_live, idx, part, order, args, funcs)
+
+
+@pytest.mark.parametrize("funcs", [
+    [("row_number", None)], [("sum", 1)], [("cume_dist", None)],
+    [("sum", 0), ("count", 0)], [("percent_rank", None), ("max", 3)],
+], ids=["row_number", "sum", "cume_dist", "sum_count", "pct_max"])
+def test_window_scan_narrow_windows(dev, funcs):
+    """A window of one or two functions: rows of only those columns (no
+    padding), frames ending past their tile among them."""
+    nb, n_live = 13 * T + 5, 13 * T - 2
+    part, order, args, idx = _k10_inputs(dev, 29, nb, n_live, (3, 0),
+                                         (4, 0))
+    lay = window_scan.output_layout(window_scan.lane_groups(
+        funcs, [d.is_floating_point() for d, _n in args]))
+    assert lay["n_data"] == len(funcs)
+    _k10_check(dev, nb, n_live, idx, part, order, args, funcs)
+
+
+@pytest.mark.parametrize("keys", [False, True], ids=["no_keys", "keys"])
+def test_window_scan_input_order(dev, keys):
+    """idx = None: the rows in input order, with and without keys."""
+    nb = 7 * T + 11
+    hi = ((5, 0), (3, 0)) if keys else ((0, 0), (0, 0))
+    part, order, args, idx = _k10_inputs(dev, 28, nb, nb - 7, *hi,
+                                         sort=False)
+    assert idx is None
+    _k10_check(dev, nb, nb - 7, idx, part, order, args)
 
 
 def test_window_order_matches_torch_sort(dev):

@@ -292,9 +292,15 @@ def set_budget(n: int):
 
 
 def _auto_budget() -> int:
-    """The CUDA device's total memory, or 0 (unlimited) when the engine
-    runs on the CPU (host RAM is governed by the MemTracker quota tree,
-    not this manager) or no card is visible.
+    """What torch's caching allocator can hold on the CUDA device: the
+    free memory at the first probe plus what the allocator has already
+    reserved there (``torch.cuda.memory_reserved``), or 0 (unlimited)
+    when the engine runs on the CPU (host RAM is governed by the
+    MemTracker quota tree, not this manager) or no card is visible.
+    This is the counterpart of the reference's ``bytes_limit``: the
+    memory the allocator may actually take, never the card's total,
+    which also counts the CUDA context and every other process on the
+    card.
 
     Same discipline as every config refresh: the memo check and the
     publish happen under _LOCK, the device probe runs OUTSIDE it; a
@@ -310,8 +316,8 @@ def _auto_budget() -> int:
         from .device import _DEVICE
         dev = torch.device(_DEVICE[0])
         if dev.type == "cuda" and torch.cuda.is_available():
-            _free, total = torch.cuda.mem_get_info(dev)
-            budget = int(total)
+            free, _total = torch.cuda.mem_get_info(dev)
+            budget = int(free) + int(torch.cuda.memory_reserved(dev))
     except Exception:
         budget = 0
     with _LOCK:
