@@ -15,6 +15,15 @@ Phases, each fatal on failure:
    ANALYZE, which must show ``engine:tpu`` on every HashAgg;
 1b. the build's ptxas report: every entry function's stack frame and
    registers; a K2 entry with a stack frame fails the run;
+1c. ``[fold-split]`` — ``python3 chip_smoke.py --fold-split`` in a
+   process of its own, whose device trace keeps every launch (inside the
+   whole run it drops some of the fold's): the ``[merge]`` check of
+   phase 8 on seeded folds shaped like Q18's SF10 fold (a running state
+   of 2^24 slots and seven blocks of 2^22, one packed key drawn over
+   60M orderkeys, a sum), the mesh's (eight shard states of 2^21 slots,
+   one key without a pack, a sum and a max) and Q1's (15 K1 states of
+   4,096 slots, two packed keys, eight results), its ``by kernel`` line
+   splitting the fold between ``ms_bounds`` and ``ms_merge``;
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes: K2/K3 the expression VM on the Q1, Q6 and top-N
    programs, (K2's LOADG) on Q3's post-join program and on a program of
@@ -60,6 +69,8 @@ Phases, each fatal on failure:
    K11's library steps at SF1 — ``dist_agg_step`` over lineitem by
    l_orderkey and ``dist_join_agg_step`` over orders ⋈ lineitem keys
    (1,500,000 × 6,001,215 rows, int64 and float64 values) against numpy.
+   The largest fold of shard states those runs made (``[merge]``, as in
+   phase 8) against its plain version.
    Kernel A against its plain version on Q3's and the shuffle's largest
    partition (exact), timed beside its bound and a stable ``torch.sort``
    of the bucket ids with the gathers; kernel B against its plain version
@@ -115,7 +126,13 @@ Phases, each fatal on failure:
    seven queries twice each (warm-up, then timed with the launch
    counters set to 0 before), each required to run streamed or paged;
    the partial-state merge against its plain version on Q1's and Q18's
-   folds (integers exact, floats rtol 1e-9), timed beside its bound;
+   folds (integers exact, floats rtol 1e-9, n_groups exact, its fault
+   word clear), timed beside its bound and beside run A's time of the
+   parent's design (``RUN_A_MS``); each ``[merge]`` line
+   with one call's launches and copies as the CUDA runtime's calls count
+   them (more launches than ``merge_states.launch_plan`` fails the run),
+   device ms (null where the device trace missed launches) and device
+   time by kernel, and host issue ms;
    then each query twice on the resident whole-input path
    (``tidb_device_stream_rows = -1``), whose rows the streamed rows must
    equal exactly (a query the resident path cannot run is compared with
@@ -1680,6 +1697,7 @@ def mpp_dist_steps(mpp_keys, cap, label=""):
     marks the lines of a run that is not the timed one."""
     import numpy as np
     import torch
+    from tidb_tpu_torch.ops.kernels import merge_states
     from tidb_tpu_torch.parallel import mpp
     mesh = mpp.make_mesh(MPP_SHARDS, device="cuda")
     lk, lq = mpp_keys["l_orderkey"], mpp_keys["l_quantity"]
@@ -1690,10 +1708,14 @@ def mpp_dist_steps(mpp_keys, cap, label=""):
     groups = int(np.unique(lk).shape[0])
     capacity = 1 << max(groups - 1, 1).bit_length()
     t0 = time.perf_counter()
-    fk, (fs, fmx), fv, ng, ovf = mpp.dist_agg_step(
+    fk, (fs, fmx), fv, ng, ovf, fault = mpp.dist_agg_step(
         mesh, ("sum", "max"), capacity)(k, v & pad, q, q)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    try:
+        merge_states.check_fault(fault)
+    except merge_states.FoldOrderError as e:
+        fail(f"mpp dist_agg_step: {e}")
     if bool(ovf) or int(ng) != groups:
         fail(f"mpp dist_agg_step: {int(ng)} groups (want {groups}), "
              f"overflow {bool(ovf)}")
@@ -2091,9 +2113,9 @@ def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
 
     # the inputs for the checks, kept in runs of their own; Q3's time
     # with the inputs kept is shown beside the timed one
-    with KernelCapture(keep=True) as cap:
+    with KernelCapture(keep=True) as cap, FoldCapture() as fold_cap:
         for name in ("q3", "shuffle"):
-            cap.tag = name
+            cap.tag = fold_cap.tag = name
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             s.execute(SHUFFLE_Q if name == "shuffle" else sqls[name])
@@ -2101,6 +2123,7 @@ def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
             log(f"[mpp] {name} with kernel A's largest inputs kept: "
                 f"{(time.perf_counter() - t0) * 1e3:.3f} ms (not a "
                 "latency figure)")
+        fold_cap.tag = "dist_agg_step"
         mpp_dist_steps(mpp_keys, cap, " (inputs kept)")
 
     # kernel A on Q3's and the shuffle's largest partition, kernel B on
@@ -2149,6 +2172,17 @@ def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
     _size, tag, ev = max(probes, key=lambda t: t[0])
     check_mesh_probe(ev, tag, report)
     log(f"[mpp] K11 dist steps: {steps}")
+    # the largest mesh fold of those runs: the n shards' states, in shard
+    # order
+    if fold_cap.best is None:
+        fail("mpp: no fold of shard states was captured")
+    row = check_merge(f"mpp {fold_cap.best_tag}", fold_cap.best[1])
+    del fold_cap
+    report["merge_states"].update(
+        ms_mesh=row["ms"], plain_ms_mesh=row["plain_ms"],
+        bound_ms_mesh=row["bound_ms"], max_abs_err=max(
+            report["merge_states"].get("max_abs_err", 0.0),
+            row["max_abs_err"]))
     # the placements leave the card for the phases after this one
     with mpp_exec._PLACE_LOCK:
         mpp_exec._MPP_PLACE_CACHE.clear()
@@ -2883,6 +2917,8 @@ class FoldCapture:
 
     def __init__(self):
         self.best = None
+        #: the run under way, kept beside the fold it gave (best_tag)
+        self.tag = self.best_tag = None
 
     def __enter__(self):
         from tidb_tpu_torch.ops.kernels import merge_states
@@ -2895,6 +2931,7 @@ class FoldCapture:
                     self.best is None or rows >= self.best[0]):
                 self.best = (rows, (list(parts), n_keys, merge_ops,
                                     merge_cap, pack))
+                self.best_tag = self.tag
             return out
         merge_states.merge = merge
         return self
@@ -2904,17 +2941,38 @@ class FoldCapture:
         merge_states.merge = self._orig
 
 
+#: the fold's ms a call in the parent tree's design (a gather of the live
+#: slots, then K1's kernels), chip_smoke run A of the fold's redesign on
+#: NVIDIA H100 80GB HBM3, 700.00 W; printed beside the new time
+RUN_A_MS = {"sf10 q1": 0.6455360054969788, "sf10 q18": 4.749599933624268,
+            "hybrid q5": 0.712224006652832,
+            "mpp dist_agg_step": 2.9530880451202393}
+
+
 def check_merge(name, call):
     """The merge kernel against its plain version on one fold of the main
     path, timed beside its bound: the live slots of every part and their
-    group counts read once, the merged state written once."""
+    group counts read once, the merged state written once.  Its launches
+    and copies are counted from the CUDA runtime's calls on the host; it
+    fails past ``merge_states.launch_plan``'s launches, on a set fault
+    word, or with no launch recorded."""
     import torch
     from tidb_tpu_torch.ops.kernels import merge_states
     parts, n_keys, merge_ops, merge_cap, pack = call
     out_k = merge_states.merge(*call)
     out_p = merge_states.merge_plain(*call)
     torch.cuda.synchronize()
+    # raises where a part was found out of the fold's order
+    ng = merge_states.read_groups(out_k)
     err = compare_agg(out_k, out_p, merge_ops, merge_cap, f"merge {name}")
+    # the plain version sums floats with index_add_, whose atomics add in
+    # no fixed order, the kernel in part order: bit equality is logged,
+    # not required
+    lim = min(ng, merge_cap)
+    flt = [j for j, r in enumerate(out_k[2]) if r.is_floating_point()]
+    bit_equal = sum(torch.equal(out_k[2][j][:lim].view(torch.int64),
+                                out_p[2][j][:lim].view(torch.int64))
+                    for j in flt)
     ms = cuda_ms(lambda: merge_states.merge(*call))
     plain_ms = cuda_ms(lambda: merge_states.merge_plain(*call))
     live = sum(min(int(p[4]), int(p[0][0].shape[0])) for p in parts)
@@ -2922,14 +2980,114 @@ def check_merge(name, call):
     moved = live * slot + 8 * len(parts) + merge_cap * (slot + 1) + 8
     bound = moved / HBM_BYTES_PER_S * 1e3
     caps = sorted({int(p[0][0].shape[0]) for p in parts})
-    split = call_split(lambda: merge_states.merge(*call))
+    plan = merge_states.launch_plan([int(p[0][0].shape[0]) for p in parts],
+                                    merge_cap, n_keys, pack)
+    prof, runtime = {}, {}
+    split = call_split(lambda: merge_states.merge(*call), prof, runtime)
+    launches = sum(v for k, v in runtime.items()
+                   if k.startswith(RUNTIME_LAUNCH))
+    copies = sum(v for k, v in runtime.items() if k.startswith(RUNTIME_COPY))
+    if launches == 0:
+        fail(f"merge {name}: no launch recorded (runtime {runtime}, device "
+             f"trace {sorted(prof)}): the launches cannot be counted")
+    if launches > plan + 0.01:
+        fail(f"merge {name}: {launches:g} launches a call (runtime "
+             f"{runtime}); launch_plan gives {plan}")
+    traced = sum(ops for k, (_ms, ops) in prof.items()
+                 if not k.startswith(("Memcpy", "Memset")))
+    if traced < launches - 0.01:
+        # the device trace missed launches: its sums are short
+        split = (None, None, split[2])
+    by_name = ", ".join(f"{k.split('(')[0]} {kms:.3f} ms x{ops:g}"
+                        for k, (kms, ops) in sorted(prof.items(),
+                                                    key=lambda t: -t[1][0]))
+    run_a = RUN_A_MS.get(name)
     log(f"[merge] {name}: {len(parts)} parts (capacities {caps}), {live} "
-        f"live slots -> {int(out_k[4])} groups in {merge_cap} slots, "
-        f"pack {pack}: max abs err {err:.3g}; {ms:.3f} ms (plain "
-        f"{plain_ms:.3f} ms, bound {bound:.4f} ms); {split_text(split)}")
+        f"live slots -> {ng} groups in {merge_cap} slots, "
+        f"pack {pack}: max abs err {err:.3g} ({bit_equal} of {len(flt)} "
+        f"float results bit-equal), fault word clear; {ms:.3f} ms ("
+        + ("" if run_a is None else f"run A {run_a:.3f} ms; ")
+        + f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms); "
+        f"{split_text(split)}; "
+        f"the runtime's calls {launches:g} launches and {copies:g} copies a "
+        f"call (launch_plan {plan})")
+    log(f"[merge] {name} by kernel: {by_name or 'nothing recorded'}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 device_ms=split[0], device_ops_per_call=split[1],
-                host_ms=split[2])
+                host_ms=split[2], launches_per_call=launches,
+                copies_per_call=copies)
+
+
+def split_folds(seed):
+    """The ``[fold-split]`` folds, seeded: {name: (parts, n_keys,
+    merge_ops, merge_cap, pack)} on the card, each part a state in the
+    fold's order (distinct keys ascending, or K1's own output)."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops.kernels import groupby_agg
+    from tidb_tpu_torch.parallel import mpp
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+
+    def up(a):
+        return torch.from_numpy(a).to(dev)
+
+    q18 = []
+    for cap in [1 << 24] + [1 << 22] * 7:
+        keys = torch.unique(up(rng.integers(1, 60_000_001, cap * 7 // 8)))
+        n = keys.numel()
+        k = torch.zeros(cap, dtype=torch.int64, device=dev)
+        k[:n] = keys
+        nl = torch.zeros(cap, dtype=torch.bool, device=dev)
+        q18.append(((k,), (nl,), (up(rng.integers(1, 51, cap)),), (nl,),
+                    torch.tensor(n, dtype=torch.int64, device=dev),
+                    torch.arange(cap, device=dev) < n))
+    mesh = []
+    for _s in range(MPP_SHARDS):
+        n = 750_000
+        mesh.append(mpp._local_state(
+            up(rng.integers(1, 6_000_001, n)),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            [up(rng.integers(1, 51, n)), up(rng.standard_normal(n))],
+            ("sum", "max"), 1 << 21))
+    q1_ops = ("sum_i", "sum_f", "sum_f", "sum_f", "sum_i", "sum_f", "sum_f",
+              "sum_i")
+    q1_pack = ((3, 0), (2, 0))
+    q1 = []
+    for _p in range(15):
+        n = 1 << 16
+        z = torch.zeros(n, dtype=torch.bool, device=dev)
+        vals = tuple(up(rng.standard_normal(n)) if op == "sum_f"
+                     else up(rng.integers(0, 50, n)) for op in q1_ops)
+        q1.append(groupby_agg.groupby_agg(
+            (up(rng.integers(0, 3, n)), up(rng.integers(0, 2, n))), (z, z),
+            vals, (z,) * len(q1_ops), ~z, 2, q1_ops, 4096, q1_pack))
+    return {"seeded q18": (q18, 1, ("sum_i",), 1 << 24, ((26, -1),)),
+            "seeded mesh": (mesh, 1, ("sum_i", "max"), 1 << 21, None),
+            "seeded q1": (q1, 2, q1_ops, 4096, q1_pack)}
+
+
+def fold_split(seed):
+    """``--fold-split``: check_merge on :func:`split_folds`, in a process
+    that has run nothing else on the card."""
+    for name, call in split_folds(seed).items():
+        check_merge(name, call)
+
+
+def phase_fold_split(args):
+    """``[fold-split]`` — this script's ``--fold-split`` mode in a child
+    process; its lines are relayed, and its failure fails the run."""
+    try:
+        r = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--fold-split",
+             "--seed", str(args.seed)], capture_output=True, text=True,
+            timeout=600, cwd=HERE)
+    except subprocess.TimeoutExpired:
+        fail("fold-split: no end within 600 s")
+    for line in r.stdout.splitlines():
+        log(f"[fold-split] {line}")
+    if r.returncode:
+        fail(f"fold-split: exit {r.returncode}: {r.stderr[-3000:]}")
 
 
 def phase_sf10(args, dom, rate, report):
@@ -2972,7 +3130,9 @@ def phase_sf10(args, dom, rate, report):
     # the row of the larger fold (Q18's), with Q1's many small parts
     # beside it
     merge_row = dict(max(rows.values(), key=lambda r: r["bound_ms"]),
-                     max_abs_err=max(r["max_abs_err"] for r in rows.values()))
+                     max_abs_err=max(
+                         [r["max_abs_err"] for r in rows.values()]
+                         + [report["merge_states"].get("max_abs_err", 0.0)]))
     merge_row.update({f"{k}_q1": rows["q1"][k] for k in (
         "ms", "plain_ms", "device_ms", "device_ops_per_call", "host_ms")})
     report["merge_states"].update(merge_row)
@@ -3207,8 +3367,10 @@ def phase_hybrid(s, rate, sf10_rows, report):
             f"keys (packs {ev['packs']}): exact; {ms:.3f} ms (plain "
             f"{plain_ms:.3f} ms, bound {bound:.4f} ms)")
         row = check_merge("hybrid q5", fold_cap.best[1])
-        report["merge_states"]["max_abs_err"] = max(
-            report["merge_states"]["max_abs_err"], row["max_abs_err"])
+        report["merge_states"].update(
+            ms_hybrid=row["ms"], plain_ms_hybrid=row["plain_ms"],
+            bound_ms_hybrid=row["bound_ms"], max_abs_err=max(
+                report["merge_states"]["max_abs_err"], row["max_abs_err"]))
     finally:
         s.execute("set global tidb_device_mem_budget = 0")
 
@@ -3216,6 +3378,9 @@ def phase_hybrid(s, rate, sf10_rows, report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--fold-split", action="store_true",
+                    help="only the [fold-split] folds (phase 1c), in this "
+                         "process")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "tidb_tpu_torch")):
         print("chip_smoke: the tidb_tpu_torch package is not beside this "
@@ -3230,6 +3395,13 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from tidb_tpu_torch.ops import device as pdev
     pdev.set_device("cuda")
+    if args.fold_split:
+        try:
+            fold_split(args.seed)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
     report = {
         "groupby_agg": {"name": "K1 groupby_agg", "route": "cuda",
                         "source": "tidb_tpu_torch/ops/kernels/csrc/"
@@ -3314,6 +3486,8 @@ def main(argv=None) -> int:
     try:
         phase_build()
         phase_done("build")
+        phase_fold_split(args)
+        phase_done("fold split")
         captured, joins = {}, {}
         dom, s, n_rows, keys = phase_sql_setup(args, captured, joins)
         phase_done("sql set-up")
@@ -3389,7 +3563,11 @@ def main(argv=None) -> int:
              # K10: torch's index_put_ of rows shaped like its outputs;
              # the copy back's concatenation in its layout and in the
              # plain version's
-             "index_put_ms", "fetch_cat_ms", "fetch_cat_plain_ms")
+             "index_put_ms", "fetch_cat_ms", "fetch_cat_plain_ms",
+             # the fold on the hybrid join's largest fold and the mesh's
+             # (ms_mesh above); its launches and copies a call
+             "ms_hybrid", "plain_ms_hybrid", "bound_ms_hybrid",
+             "launches_per_call", "copies_per_call")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report.values()]}))

@@ -437,6 +437,284 @@ def test_merge_states_of_empty_parts(dev, pack):
             assert torch.equal(a[:ng], b[:ng])
 
 
+# -- the fold as one merge of sorted runs: orders, edges, sizes ----------------
+
+_FOLD_OPS = ("sum_i", "sum_f", "min", "max", "first", "sum_i", "min", "max")
+
+
+def _plain_parts(dev, rng, n_parts, pack, n=2_000, key_hi=300, spans=None,
+                 nan=False, wrap=False, cap=1 << 12):
+    """Partial states made by K1's plain version on the CPU (the fold's
+    order by contract) from seeded rows, then moved to the card; part p
+    draws its first key from spans[p] (a (lo, hi) range) where given.
+    Each row feeds every merge op: an int64, a float64 (NaN where `nan`),
+    and int64 values near 2^62 where `wrap` (their sums wrap)."""
+    ops = ("sum_i", "sum_f", "min", "max", "first", "count", "min", "max")
+    parts = []
+    for p in range(n_parts):
+        lo, hi = spans[p] if spans else (0, key_hi)
+        keys = (torch.from_numpy(rng.integers(lo, hi, n)),
+                torch.from_numpy(rng.integers(0, 3, n)))
+        knulls = (torch.from_numpy(rng.random(n) < 0.02),
+                  torch.from_numpy(rng.random(n) < 0.02))
+        big = (1 << 62) if wrap else 10**9
+        vi = torch.from_numpy(rng.integers(-big, big, n))
+        vf = rng.standard_normal(n)
+        if nan:
+            vf[rng.random(n) < 0.05] = np.nan
+        vf = torch.from_numpy(vf)
+        vn = torch.from_numpy(rng.random(n) < 0.1)
+        mask = torch.from_numpy(rng.random(n) < 0.9)
+        st = groupby_agg.groupby_plain(
+            keys, knulls, (vi, vf, vf, vf, vi, vi, vi, vi), (vn,) * 8, mask,
+            2, ops, cap, pack)
+        parts.append(tuple(tuple(t.to(dev) for t in x)
+                           if isinstance(x, tuple) else x.to(dev)
+                           for x in st))
+    return parts
+
+
+def _fold_same(got, want, ops, cap):
+    """The fold's contract: K1's (k1_same), its fault word clear, and
+    every slot past n_groups zero and not valid."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    ng = merge_states.read_groups(got)
+    assert ng == int(want[4])
+    k1_same(got, want, ops, cap)
+    lim = min(ng, cap)
+    for t in got[0] + got[1] + got[2] + got[3] + (got[5],):
+        assert not t[lim:].cpu().view(torch.uint8).any()
+
+
+def _fold_case(dev, rng, case, pack):
+    """(parts, merge_cap) of one edge of the merge of sorted runs."""
+    if case == "random":
+        return _plain_parts(dev, rng, 9, pack), 1 << 12
+    if case == "one_part_all_keys":  # part 0 holds every key
+        parts = _plain_parts(dev, rng, 1, pack, n=20_000, key_hi=100)
+        return parts + _plain_parts(dev, rng, 4, pack, n=30, key_hi=100), 512
+    if case == "disjoint":  # parts with disjoint key ranges
+        spans = [(1000 * p, 1000 * p + 400) for p in (3, 0, 2, 1, 4)]
+        return _plain_parts(dev, rng, 5, pack, spans=spans), 1 << 12
+    if case == "same_keys":  # every part holds every key: P copies a key
+        return _plain_parts(dev, rng, 12, pack, n=5_000, key_hi=60), 512
+    if case == "clamped":  # a part of more groups than its capacity: its
+        # slots hold its first groups, and only those fold
+        parts = _plain_parts(dev, rng, 4, pack, n=2_000, key_hi=120)
+        over = _plain_parts(dev, rng, 1, pack, n=2_000, key_hi=120, cap=64)
+        assert int(over[0][4]) > 64
+        return parts[:2] + over + parts[2:], 1 << 12
+    if case == "all_empty":
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return [p[:4] + (zero,) + p[5:]
+                for p in _plain_parts(dev, rng, 5, pack)], 64
+    if case == "nan_wrap":  # NaN in min / max, int64 sums that wrap
+        return _plain_parts(dev, rng, 7, pack, nan=True, wrap=True), 1 << 12
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("pack", [((22, 0), (2, 0)), None],
+                         ids=["pack", "hash"])
+@pytest.mark.parametrize("case", ["random", "one_part_all_keys", "disjoint",
+                                  "same_keys", "clamped", "all_empty",
+                                  "nan_wrap"])
+def test_fold_edges_match_plain(dev, case, pack):
+    """Both orders (NULL packed first; NULL after every value without a
+    pack) and the edges of the merge of sorted runs."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    rng = np.random.default_rng(40)
+    parts, cap = _fold_case(dev, rng, case, pack)
+    got = merge_states.merge(parts, 2, _FOLD_OPS, cap, pack)
+    want = merge_states.merge_plain(parts, 2, _FOLD_OPS, cap, pack)
+    torch.cuda.synchronize()
+    _fold_same(got, want, _FOLD_OPS, cap)
+
+
+def test_fold_first_from_the_earliest_part(dev):
+    """Every part holds the same keys: `first` and the key's own slot come
+    from part 0, sums add in part order."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    n = 64
+    parts = []
+    for p in range(5):
+        keys = torch.arange(n, dtype=torch.int64, device=dev)
+        nl = torch.zeros(n, dtype=torch.bool, device=dev)
+        v = torch.full((n,), 100 + p, dtype=torch.int64, device=dev)
+        parts.append(((keys,), (nl,), (v, v), (nl, nl),
+                      torch.tensor(n, device=dev), ~nl))
+    got = merge_states.merge(parts, 1, ("first", "sum_i"), n, ((7, 0),))
+    assert merge_states.read_groups(got) == n
+    assert bool((got[2][0] == 100).all())
+    assert bool((got[2][1] == sum(100 + p for p in range(5))).all())
+
+
+@pytest.mark.parametrize("merge_cap", [16, 100])
+def test_fold_growth_keeps_n_groups_exact(dev, merge_cap):
+    """Past merge_cap n_groups counts every group, the slots below it hold
+    the first groups, and a fold at next_pow2(n_groups) equals the plain
+    version's."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    rng = np.random.default_rng(41)
+    parts = _plain_parts(dev, rng, 9, None, n=3_000, key_hi=5_000)
+    got = merge_states.merge(parts, 2, _FOLD_OPS, merge_cap)
+    want = merge_states.merge_plain(parts, 2, _FOLD_OPS, merge_cap)
+    torch.cuda.synchronize()
+    ng = merge_states.read_groups(got)
+    assert ng > merge_cap
+    _fold_same(got, want, _FOLD_OPS, merge_cap)
+    cap = 1 << (ng - 1).bit_length()
+    _fold_same(merge_states.merge(parts, 2, _FOLD_OPS, cap),
+               merge_states.merge_plain(parts, 2, _FOLD_OPS, cap),
+               _FOLD_OPS, cap)
+
+
+@pytest.mark.parametrize("n_parts", [1, 9, 40, 70])
+def test_fold_part_counts(dev, n_parts):
+    """1, 9 and 40 parts, and 70 of the widest state (8 keys, 32 results:
+    more parts than the launch's parameter space holds), each folded in
+    groups of at most merge_states.MAX_PARTS."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    rng = np.random.default_rng(42 + n_parts)
+    nk, m = (8, 32) if n_parts == 70 else (2, len(_FOLD_OPS))
+    ops = (_FOLD_OPS * 4)[:m]
+    parts = []
+    for _p in range(n_parts):
+        n = int(rng.integers(0, 400))
+        keys = tuple(torch.from_numpy(rng.integers(0, 3 if i else 200, n))
+                     for i in range(nk))
+        knulls = tuple(torch.from_numpy(rng.random(n) < 0.03)
+                       for _i in range(nk))
+        vals = tuple(torch.from_numpy(rng.standard_normal(n))
+                     if op in ("sum_f",) or (j % 3 == 2 and op != "sum_i")
+                     else torch.from_numpy(rng.integers(-99, 99, n))
+                     for j, op in enumerate(ops))
+        vnulls = tuple(torch.from_numpy(rng.random(n) < 0.1) for _ in ops)
+        st = groupby_agg.groupby_plain(keys, knulls, vals, vnulls,
+                                       torch.ones(n, dtype=torch.bool), nk,
+                                       ops, 512)
+        parts.append(tuple(tuple(t.to(dev) for t in x)
+                           if isinstance(x, tuple) else x.to(dev)
+                           for x in st))
+    before = merge_states.LAUNCHES[0]
+    got = merge_states.merge(parts, nk, ops, 1 << 13)
+    want = merge_states.merge_plain(parts, nk, ops, 1 << 13)
+    torch.cuda.synchronize()
+    _fold_same(got, want, ops, 1 << 13)
+    # one kernel fold a group and one over the groups' states
+    groups = merge_states.fold_groups(n_parts)
+    assert merge_states.LAUNCHES[0] - before == (
+        1 if len(groups) == 1 else len(groups) + 1)
+
+
+def test_fold_of_mesh_states(dev):
+    """The mesh's fold: 8 shard states of one key without a pack
+    (parallel/mpp.py dist_agg_step's K1 states)."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    from tidb_tpu_torch.parallel import mpp
+    rng = np.random.default_rng(43)
+    states = []
+    for _s in range(8):
+        n = 50_000
+        keys = _up(rng.integers(-5_000, 5_000, n), dev)
+        valid = _up(rng.random(n) < 0.9, dev)
+        vals = [_up(rng.integers(-10**6, 10**6, n), dev),
+                _up(rng.standard_normal(n), dev)]
+        states.append(mpp._local_state(keys, valid, vals, ("sum", "max"),
+                                       1 << 14))
+    ops = ("sum_i", "max")
+    got = merge_states.merge(states, 1, ops, 1 << 14)
+    want = merge_states.merge_plain(states, 1, ops, 1 << 14)
+    torch.cuda.synchronize()
+    _fold_same(got, want, ops, 1 << 14)
+
+
+def test_fold_q18_sized(dev):
+    """Q18's SF10 fold: eight parts of 2^22 slots and a running state of
+    2^24, one packed key (orderkeys drawn at random over 60M), a sum."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    rng = np.random.default_rng(44)
+    parts = []
+    for cap in [1 << 24] + [1 << 22] * 8:
+        keys = np.unique(rng.integers(1, 60_000_001, cap * 7 // 8))
+        n = len(keys)
+        pad = np.zeros(cap, dtype=np.int64)
+        pad[:n] = keys
+        k = _up(pad, dev)
+        v = _up(rng.integers(1, 51, cap), dev)
+        nl = torch.zeros(cap, dtype=torch.bool, device=dev)
+        parts.append(((k,), (nl,), (v,), (nl,),
+                      torch.tensor(n, dtype=torch.int64, device=dev),
+                      torch.arange(cap, device=dev) < n))
+    pack = ((26, -1),)
+    got = merge_states.merge(parts, 1, ("sum_i",), 1 << 26, pack)
+    want = merge_states.merge_plain(parts, 1, ("sum_i",), 1 << 26, pack)
+    torch.cuda.synchronize()
+    _fold_same(got, want, ("sum_i",), 1 << 26)
+
+
+@pytest.mark.parametrize("where", ["swap", "duplicate", "tile_edge"])
+@pytest.mark.parametrize("pack", [((22, 0), (2, 0)), None],
+                         ids=["pack", "hash"])
+def test_fold_refuses_a_part_out_of_order(dev, where, pack):
+    """A part whose live keys are not distinct and ascending raises on the
+    read of n_groups; no rows are returned."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    rng = np.random.default_rng(45)
+    n = 200_000 if where == "tile_edge" else 2_000
+    parts = _plain_parts(dev, rng, 3, pack, n=n, key_hi=10 * n, cap=1 << 18)
+    k0 = parts[1][0][0]
+    ng = int(parts[1][4])
+    # tile_edge: a swap deep in a part that spans many tiles
+    i = {"swap": 5, "duplicate": 7, "tile_edge": ng // 2}[where]
+    if where == "duplicate":
+        for col in parts[1][0] + parts[1][1]:
+            col[i + 1] = col[i]
+    else:
+        for col in parts[1][0] + parts[1][1]:
+            a, b = col[i].clone(), col[i + 1].clone()
+            col[i], col[i + 1] = b, a
+    got = merge_states.merge(parts, 2, _FOLD_OPS, 1 << 20, pack)
+    with pytest.raises(merge_states.FoldOrderError):
+        merge_states.read_groups(got)
+    assert k0.shape[0] > 0
+    # the next fold on the stream is clear
+    good = _plain_parts(dev, rng, 2, pack)
+    _fold_same(merge_states.merge(good, 2, _FOLD_OPS, 1 << 12, pack),
+               merge_states.merge_plain(good, 2, _FOLD_OPS, 1 << 12, pack),
+               _FOLD_OPS, 1 << 12)
+
+
+@pytest.mark.parametrize("pack", [((22, 0), (2, 0)), None],
+                         ids=["pack", "hash"])
+def test_fold_of_groups_refuses_a_part_out_of_order(dev, pack):
+    """45 parts fold in two groups and then over the groups' states; a
+    part out of order in the second group raises, on a stream whose
+    status block is new, so it grows between the group launches and the
+    last one (which spans more tiles than any group)."""
+    from tidb_tpu_torch.ops.kernels import merge_states
+    rng = np.random.default_rng(46)
+    parts = _plain_parts(dev, rng, 45, pack, n=600, key_hi=3_000)
+    assert len(merge_states.fold_groups(45)) == 2
+    bad = parts[40]
+    assert int(bad[4]) > 10
+    for col in bad[0] + bad[1]:
+        a, b = col[5].clone(), col[6].clone()
+        col[5], col[6] = b, a
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with merge_states._STATUS_LOCK:
+        merge_states._STATUS.pop((bad[4].device, stream.cuda_stream), None)
+    with torch.cuda.stream(stream):
+        got = merge_states.merge(parts, 2, _FOLD_OPS, 1 << 14, pack)
+        with pytest.raises(merge_states.FoldOrderError):
+            merge_states.read_groups(got)
+        st = merge_states._STATUS[(bad[4].device, stream.cuda_stream)]
+    tile = merge_states.tile_rows(merge_states.n_words(2, pack))
+    # the block grew for the last launch, past the first group's tiles
+    assert st.tiles >= -(-45 * (1 << 12) // tile) > -(-32 * (1 << 12)
+                                                        // tile)
+
+
 # -- the window kernel (K10 window_scan) and K4's window order --------------
 
 def _window_case(dev, seed, nb, n_live):

@@ -35,6 +35,7 @@ from tidb_tpu.parallel import mpp as rmpp
 from tidb_tpu.utils.jaxcompat import shard_map
 from tidb_tpu_torch.executor import mpp_exec as pexec
 from tidb_tpu_torch.ops import device as tdev
+from tidb_tpu_torch.ops.kernels import merge_states
 from tidb_tpu_torch.ops.kernels import radix_exchange as rx
 from tidb_tpu_torch.parallel import mpp as pmpp
 
@@ -218,6 +219,7 @@ def test_dist_agg_matches_numpy_and_reference():
         pa[0], pa[1] & ppad, *pa[2:])
     assert not bool(r[4]) and not bool(p[4])
     assert int(p[3]) == int(r[3]) == 37
+    merge_states.check_fault(p[5])  # the port's fold fault word: clear
     assert _np(p[2])[:37].all()
     want = _numpy_groupby(keys, valid, [sums, ones, mins, mins], kinds)
     assert _groups(p[0], p[1], p[3]) == want == _groups(r[0], r[1], r[3])

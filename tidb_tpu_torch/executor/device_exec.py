@@ -1286,12 +1286,14 @@ def merge_partial_states(state, parts, merge_cap, n_keys, nvals, merge_ops,
     (inputs stay alive, so the retry is exact). Returns (state,
     merge_cap) — state is an _agg_impl output tuple whose [4] is the live
     group count.  The reference's numpy fold for its XLA-CPU backend is
-    not carried over: the CPU runs the merge's plain version."""
+    not carried over: the CPU runs the merge's plain version.  Raises
+    merge_states.FoldOrderError where a part was out of the fold's
+    order."""
     alls = ([state] if state is not None else []) + list(parts)
     while True:
         out = merge_states.merge(alls, n_keys, merge_ops, merge_cap,
                                  key_pack)
-        ng = int(out[4])
+        ng = merge_states.read_groups(out)
         if ng <= merge_cap:
             return out, merge_cap
         merge_cap = dev.next_pow2(ng)

@@ -340,7 +340,8 @@ def _build_mpp_pipeline(mesh, root, leaves, joins, plan, agg_conds,
                          for j in range(n_joins))
         sovfs_out = tuple(mesh.pmax([s[j].to(torch.int64) for s in sovfs])
                           for j in range(len(sovfs[0])))
-        return merged, png, ovfs_out, sovfs_out, tuple(xneeds)
+        return (merged, png, ovfs_out, sovfs_out, tuple(xneeds),
+                merge_states.fault_word(merged))
 
     return pipeline
 
@@ -623,8 +624,10 @@ def _run_mpp_impl(plan, agg_conds, root, leaves, joins, ctx, mesh):
                               shape="mpp", sig=sig)
         try:
             failpoint.inject("mpp-exchange-send")
-            agg_out, png_d, ovfs_d, sovfs_d, xneeds_d = fn(env, n_lives)
-            f = AggFetch(agg_out, extras=(png_d, ovfs_d, sovfs_d, xneeds_d))
+            agg_out, png_d, ovfs_d, sovfs_d, xneeds_d, fault_d = fn(
+                env, n_lives)
+            f = AggFetch(agg_out, extras=(png_d, ovfs_d, sovfs_d, xneeds_d,
+                                          fault_d))
             failpoint.inject("mpp-exchange-recv")
         except (FailpointError, ExchangeError, ConnectionError,
                 TimeoutError) as e:
@@ -645,7 +648,10 @@ def _run_mpp_impl(plan, agg_conds, root, leaves, joins, ctx, mesh):
                 raise
             MPP_STATS["exchange_retries"] += 1
             continue
-        png, ovfs, sovfs, xneeds = f.extras
+        png, ovfs, sovfs, xneeds, fault = f.extras
+        # the fold's fault word, fetched with n_groups: a shard state out
+        # of the fold's order raises
+        merge_states.check_fault(fault)
         fng = f.ng
         if any(int(s) for s in sovfs):
             raise DeviceUnsupported(

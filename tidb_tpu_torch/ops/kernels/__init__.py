@@ -11,8 +11,8 @@ PyTorch version:
 ``join_expand`` K5b — the CSR expansion, post-join compaction and join
                 totals (a hand-written scan);
 ``merge_states`` K8/K9 — the fold of partial aggregate states (the
-                streamed aggregate's and the paged join's): a gather
-                of each state's live slots, then K1's kernels;
+                streamed aggregate's, the paged and hybrid joins', the
+                mesh's): one merge of the states' sorted live runs;
 ``window_scan`` K10 — window functions after the window's sort (K4):
                 change flags, segmented scans of the partition and
                 peer-group bounds and running aggregates, and the

@@ -56,6 +56,13 @@ _NN_OPS = ("count", "sum_i", "sum_f", "min", "max")
 LAUNCHES = [0]
 
 
+class DeviceState(tuple):
+    """A state the card's kernels made (K1's, or the fold's): its arrays
+    are views of the kernels' own output buffers, contiguous, of one
+    capacity, on one device, so the fold takes it without checking each
+    array again."""
+
+
 def _big(dtype, sign):
     if dtype.is_floating_point:
         return sign * float("inf")
@@ -346,5 +353,5 @@ def groupby_cuda(key_cols, key_nulls, val_cols, val_nulls, mask, n_keys,
         c.view(torch.float64)
         if op == "sum_f" or (fl and op in ("min", "max", "first")) else c
         for c, op, fl in zip(cols[n_keys:], agg_ops, vflt))
-    return (cols[:n_keys], flags[:n_keys], results, flags[n_keys:-1], ng_t,
-            flags[-1])
+    return DeviceState((cols[:n_keys], flags[:n_keys], results,
+                        flags[n_keys:-1], ng_t, flags[-1]))

@@ -203,10 +203,14 @@ def dist_agg_step(mesh: Mesh, kinds: tuple, capacity: int,
         valid bool[N]       row mask (filter result & padding)
         *vals               one tensor per aggregate, aligned with `kinds`
     `kinds`: "sum" | "count" | "min" | "max" ("count" vals 0/1 int64).
-    Returns (group_keys[cap], outs, out_valid[cap], n_groups, overflowed):
-    each shard's partial on K1, then ONE partial-state fold of the n
-    states in shard order (the all_gather and the final merge); overflow
-    is ``max(pmax(partial n_groups), final n_groups) > capacity``."""
+    Returns (group_keys[cap], outs, out_valid[cap], n_groups, overflowed,
+    fault): each shard's partial on K1, then ONE partial-state fold of the
+    n states in shard order (the all_gather and the final merge); overflow
+    is ``max(pmax(partial n_groups), final n_groups) > capacity``.  All
+    stay on the device; `fault` is the fold's fault word (the reference
+    has no such output), which the caller hands to
+    ``merge_states.check_fault`` where it reads n_groups: a shard state
+    out of the fold's order raises ``FoldOrderError``."""
     t0 = _time.perf_counter()
     n = mesh.shape[axis]
     kinds = tuple(kinds)
@@ -220,7 +224,8 @@ def dist_agg_step(mesh: Mesh, kinds: tuple, capacity: int,
         out = merge_states.merge(states, 1, ops, capacity)
         png = mesh.pmax([s[4] for s in states])
         overflow = torch.maximum(png, out[4]) > capacity
-        return out[0][0], tuple(out[2]), out[5], out[4], overflow
+        return (out[0][0], tuple(out[2]), out[5], out[4], overflow,
+                merge_states.fault_word(out))
 
     return _supervised_step(_built(step, t0), ctx)
 
