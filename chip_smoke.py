@@ -24,6 +24,15 @@ Phases, each fatal on failure:
    one key without a pack, a sum and a max) and Q1's (15 K1 states of
    4,096 slots, two packed keys, eight results), its ``by kernel`` line
    splitting the fold between ``ms_bounds`` and ``ms_merge``;
+1d. ``[exchange-split]`` — ``python3 chip_smoke.py --exchange-split`` in
+   a process of its own: kernel A on seeded rows shaped like ``[mpp]``'s
+   Q3 partition (``EXCHANGE_Q3``) and at 1023 buckets, kernel B on a
+   seeded 2^21-slot int64 and float64 shard (``JOIN_SUM_SHARD``), each
+   against its plain version (A every buffer exact, B int64 exact and
+   float64 within rtol 1e-9, the same bits over three calls), with ms a
+   call, host issue ms, device ms by kernel, the runtime's launches,
+   copies and memsets a call (it fails past the wrapper's
+   ``launch_plan``, one launch, on a copy or a memset) and the bound;
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes: K2/K3 the expression VM on the Q1, Q6 and top-N
    programs, (K2's LOADG) on Q3's post-join program and on a program of
@@ -1540,7 +1549,9 @@ class KernelCapture:
     sends through the mesh's all_to_all and the seconds spent building
     host join indexes (the skew guard's), and, with `keep`, keeps each
     kernel's largest call's inputs and outputs, per tag, for the checks
-    against the plain versions.  Timed runs keep nothing."""
+    against the plain versions (kernel A's: of its largest calls, the one
+    with the most valid rows; and every call's valid share).  Timed runs
+    keep nothing."""
 
     def __init__(self, keep=False):
         self.calls = {}
@@ -1548,6 +1559,7 @@ class KernelCapture:
         self.index_s = 0.0
         self.tag = None
         self.keep = keep
+        self.shares = {}  # tag: (rows, valid share) of each kernel A call
 
     def __enter__(self):
         from tidb_tpu_torch.executor import device_join
@@ -1587,9 +1599,15 @@ class KernelCapture:
             out = part_fn(h, valid, n_dest, n_sub, cap, cols)
             self.bytes += n_dest * n_sub * cap * (
                 1 + sum(c.element_size() for c in cols))
-            self._keep("A", h.shape[0], dict(
-                h=h, valid=valid, n_dest=n_dest, n_sub=n_sub, cap=cap,
-                cols=list(cols), out=out))
+            if self.keep:
+                # of the largest calls, the one with the most valid rows
+                share = (1.0 if valid is None
+                         else float(valid.float().mean()))
+                self.shares.setdefault(self.tag, []).append(
+                    (h.shape[0], share))
+                self._keep("A", (h.shape[0], share), dict(
+                    h=h, valid=valid, n_dest=n_dest, n_sub=n_sub, cap=cap,
+                    cols=list(cols), out=out))
             return out
 
         def join_sum(bv, order, pos0, cnt, pv, pvalid=None):
@@ -1796,12 +1814,28 @@ def check_exchange(ev, what):
         order = torch.sort(bucket, stable=True).indices
         return [c[order] for c in cols]
     lib_ms = cuda_ms(library)
-    m = h.shape[0]
+    return ms, plain_ms, lib_ms, exchange_bound_ms(ev)
+
+
+def exchange_bound_ms(ev):
+    """Kernel A's bound: h, valid and every column read once, the grid
+    (rows, slot_valid, each column) written once, over HBM's rate."""
+    m = ev["h"].shape[0]
+    width = sum(c.element_size() for c in ev["cols"])
     slots = ev["n_dest"] * ev["n_sub"] * ev["cap"]
-    moved = (m * (8 + (1 if valid is not None else 0))
-             + m * sum(c.element_size() for c in cols)
-             + slots * (8 + 1 + sum(c.element_size() for c in cols)))
-    return ms, plain_ms, lib_ms, moved / HBM_BYTES_PER_S * 1e3
+    moved = (m * (8 + (1 if ev["valid"] is not None else 0)) + m * width
+             + slots * (8 + 1 + width))
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def join_sum_bound_ms(ev):
+    """Kernel B's bound: the order and the build values read once, pos0,
+    cnt, the probe values and pvalid read once, over HBM's rate."""
+    n = ev["order"].shape[0]
+    npr = ev["pos0"].shape[0]
+    moved = (n * 8 * 2 + npr * (8 * 3 + (1 if ev["pvalid"] is not None
+                                         else 0)))
+    return moved / HBM_BYTES_PER_S * 1e3
 
 
 def check_join_sum(ev, what):
@@ -1826,11 +1860,7 @@ def check_join_sum(ev, what):
         fail(f"kernel B {what}: total {int(total)} != plain {int(wt)}")
     ms = cuda_ms(lambda: sj.join_sum(*args))
     plain_ms = cuda_ms(lambda: sj.join_sum_plain(*args))
-    n = ev["order"].shape[0]
-    npr = ev["pos0"].shape[0]
-    moved = (n * 8 * 2 + npr * (8 * 3 + (1 if ev["pvalid"] is not None
-                                         else 0)))
-    return ms, plain_ms, moved / HBM_BYTES_PER_S * 1e3, err
+    return ms, plain_ms, join_sum_bound_ms(ev), err
 
 
 def check_join_sort(ev, tag, report):
@@ -2134,8 +2164,17 @@ def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
         if ev is None:
             fail(f"mpp {tag}: kernel A's inputs were not captured")
         ms, plain_ms, lib_ms, bound = check_exchange(ev, tag)
-        log(f"[mpp] kernel A on {tag}'s largest partition "
-            f"({ev['h'].shape[0]} rows, {len(ev['cols'])} columns, grid "
+        share = (1.0 if ev["valid"] is None else
+                 float(ev["valid"].float().mean()))
+        m = ev["h"].shape[0]
+        same = sorted(f"{x:.4f}" for rows, x in cap.shares.get(tag, ())
+                      if rows == m)
+        log(f"[mpp] kernel A on {tag}'s largest partition with the most "
+            "valid rows "
+            f"({m} rows, {len(ev['cols'])} columns of "
+            f"{[c.element_size() for c in ev['cols']]} bytes, valid share "
+            f"{share:.4f}; the valid shares of the {len(same)} calls of "
+            f"that size: {', '.join(same)}; grid "
             f"{ev['n_dest']}x{ev['n_sub']}x{ev['cap']}): exact; "
             f"{ms:.3f} ms (plain {plain_ms:.3f} ms, stable torch.sort + "
             f"gathers {lib_ms:.3f} ms, bound {bound:.4f} ms)")
@@ -3090,6 +3129,215 @@ def phase_fold_split(args):
         fail(f"fold-split: exit {r.returncode}: {r.stderr[-3000:]}")
 
 
+#: kernel A's largest partition on ``[mpp]``'s Q3 (the ``[mpp] kernel A on
+#: q3's largest partition`` line of the kernel redesign's run A on NVIDIA
+#: H100 80GB HBM3, 700.00 W: rows, element size of each column, grid),
+#: which ``[exchange-split]`` rebuilds from a seed at each share of valid
+#: rows: 0.54, lineitem's rows that Q3's date filter keeps (a shard full
+#: of live rows), and 0, the call that line captured (the mesh's last
+#: shard, past lineitem's live rows)
+EXCHANGE_Q3 = {"rows": 1 << 20, "es": (8, 1, 8, 1, 8, 1, 4, 1),
+               "n_dest": 8, "n_sub": 4, "cap": 1 << 16,
+               "shares": (0.54, 0.0)}
+#: kernel B's shard on the library path's dist_join_agg_step at SF1: the
+#: 8 x 4 x 2^16 slot grid after the exchange, orders' and lineitem's valid
+#: rows of one shard, one match a probe row
+JOIN_SUM_SHARD = {"n": 1 << 21, "valid_build": 187_500,
+                  "valid_probe": 750_152}
+#: the CUDA runtime's memset calls, by the start of their names
+RUNTIME_MEMSET = ("cudaMemset", "cuMemset")
+#: the split's ms a call in the parent tree's design (four launches and a
+#: fill for kernel A, five launches for kernel B): the first parent-tree
+#: call of the split in run B of their redesign, NVIDIA H100 80GB HBM3,
+#: 700.00 W; printed beside the new time
+PARENT_SPLIT_MS = {"A q3-shape, valid share 0.54": 0.3577,
+                   "A q3-shape, valid share 0.0": 0.2532,
+                   "A nb=1023": 0.4660, "B int64": 0.2105,
+                   "B float64": 0.2147}
+
+
+def exchange_split_calls(seed):
+    """The ``[exchange-split]`` calls, seeded: {name: (kernel, event)},
+    events shaped as KernelCapture keeps them."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    dtypes = {8: np.int64, 4: np.int32, 2: np.int16}
+    q3 = EXCHANGE_Q3
+    m = q3["rows"]
+    h = up(rng.integers(-(1 << 63), (1 << 63) - 1, m, dtype=np.int64))
+    cols = [up(rng.random(m) < 0.01) if es == 1 else
+            up(rng.integers(-10**6, 10**6, m).astype(dtypes[es]))
+            for es in q3["es"]]
+    grid = dict(n_dest=q3["n_dest"], n_sub=q3["n_sub"], cap=q3["cap"])
+    calls = {}
+    for share in q3["shares"]:
+        calls[f"A q3-shape, valid share {share}"] = ("A", dict(
+            grid, h=h, valid=up(rng.random(m) < share), cols=cols))
+    share = q3["shares"][0]
+    per = int(m * share / 1023 * 1.5)
+    calls["A nb=1023"] = ("A", dict(
+        h=h, valid=up(rng.random(m) < share), cols=cols, n_dest=1023,
+        n_sub=1, cap=1 << per.bit_length()))
+    sh = JOIN_SUM_SHARD
+    n = sh["n"]
+    order = up(rng.permutation(n).astype(np.int64))
+    pvalid = np.zeros(n, bool)
+    pvalid[rng.choice(n, sh["valid_probe"], replace=False)] = True
+    pos0 = rng.integers(0, sh["valid_build"], n)
+    cnt = pvalid.astype(np.int64)
+    for kind in ("int64", "float64"):
+        if kind == "int64":
+            bv = rng.integers(1, 500_000_00, n)
+            pv = rng.integers(1, 51, n)
+        else:
+            bv = rng.integers(1, 500_000_00, n) / 100.0
+            pv = rng.integers(1, 51, n) / 100.0
+        calls[f"B {kind}"] = ("B", dict(
+            bv=up(bv), order=order, pos0=up(pos0), cnt=up(cnt), pv=up(pv),
+            pvalid=up(pvalid)))
+    return calls
+
+
+def split_call(name, fn, limit, bound):
+    """One kernel call split as ``[exchange-split]`` prints it: ms a call,
+    host issue ms, device ms by kernel, the runtime's launches, copies
+    and memsets a call; fails past `limit` launches (the wrapper's
+    ``launch_plan``), on a copy or a memset, or with no launch
+    recorded."""
+    ms = cuda_ms(fn)
+    prof, runtime = {}, {}
+    dev_ms, ops, host = call_split(fn, prof, runtime)
+
+    def calls(prefixes):
+        return sum(v for k, v in runtime.items() if k.startswith(prefixes))
+    launches = calls(RUNTIME_LAUNCH)
+    copies = calls(RUNTIME_COPY)
+    memsets = calls(RUNTIME_MEMSET)
+    if launches == 0:
+        fail(f"exchange-split {name}: no launch recorded (runtime "
+             f"{runtime}): the launches cannot be counted")
+    if launches > limit + 0.01 or copies or memsets:
+        fail(f"exchange-split {name}: {launches:g} launches, {copies:g} "
+             f"copies, {memsets:g} memsets a call (runtime {runtime}); at "
+             f"most {limit} launches and none of the others")
+    by_name = ", ".join(f"{k.split('(')[0]} {kms:.4f} ms x{n:g}"
+                        for k, (kms, n) in sorted(prof.items(),
+                                                  key=lambda t: -t[1][0]))
+    parent = PARENT_SPLIT_MS.get(name)
+    log(f"{name}: {ms:.4f} ms a call ("
+        + ("" if parent is None else f"the parent's {parent:.4f} ms; ")
+        + f"bound {bound:.4f} ms, {bound / ms:.1%} of it); device "
+        f"{dev_ms:.4f} ms in {ops:g} operations a call, host issue "
+        f"{host:.4f} ms; the runtime's calls {launches:g} launches, "
+        f"{copies:g} copies, {memsets:g} memsets a call")
+    log(f"{name} by kernel: {by_name or 'nothing recorded'}")
+    return dict(ms=ms, device_ms=dev_ms, device_ops_per_call=ops,
+                host_ms=host, launches_per_call=launches,
+                copies_per_call=copies, bound_ms=bound)
+
+
+def exchange_split(seed):
+    """``--exchange-split``: kernels A and B on :func:`exchange_split_calls`
+    against their plain versions (A every buffer exact; B int64 exact,
+    float64 within rtol 1e-9 and the same bits over three calls), each
+    split by :func:`split_call`, in a process that has run nothing else
+    on the card.  Prints the figures as one JSON line last."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops.kernels import radix_exchange as rx
+    from tidb_tpu_torch.ops.kernels import shuffle_join as sj
+    out = {}
+    for name, (kernel, ev) in exchange_split_calls(seed).items():
+        if kernel == "A":
+            args = (ev["h"], ev["valid"], ev["n_dest"], ev["n_sub"],
+                    ev["cap"], ev["cols"])
+            got, want = rx.partition(*args), rx.partition_plain(*args)
+            same = (all(torch.equal(got[k], want[k])
+                        for k in ("rows", "valid"))
+                    and all(torch.equal(a.view(torch.uint8),
+                                        b.view(torch.uint8))
+                            for a, b in zip(got["cols"], want["cols"]))
+                    and all(int(got[k]) == int(want[k])
+                            for k in ("need", "dropped")))
+            if not same:
+                fail(f"exchange-split {name}: kernel A differs from its "
+                     "plain version")
+            log(f"{name}: {ev['h'].shape[0]} rows, columns of "
+                f"{[c.element_size() for c in ev['cols']]} bytes, grid "
+                f"{ev['n_dest']}x{ev['n_sub']}x{ev['cap']}, need "
+                f"{int(got['need'])}, dropped {int(got['dropped'])}: exact")
+            plan = rx.launch_plan(ev["h"].shape[0],
+                                  ev["n_dest"] * ev["n_sub"], ev["cap"])
+            out[name] = split_call(name, lambda: rx.partition(*args),
+                                   plan["launches"], exchange_bound_ms(ev))
+        else:
+            args = (ev["bv"], ev["order"], ev["pos0"], ev["cnt"], ev["pv"],
+                    ev["pvalid"])
+            runs = [sj.join_sum(*args) for _ in range(3)]
+            wt, wp = sj.join_sum_plain(*args)
+            total, pairs = runs[0]
+            if int(pairs) != int(wp):
+                fail(f"exchange-split {name}: pairs {int(pairs)} != plain "
+                     f"{int(wp)}")
+            if total.is_floating_point():
+                if not np.isclose(float(total), float(wt), rtol=1e-9,
+                                  atol=1e-12):
+                    fail(f"exchange-split {name}: total {float(total)} vs "
+                         f"plain {float(wt)}")
+                bits = {int(t.view(torch.int64)) for t, _p in runs}
+                if len(bits) != 1:
+                    fail(f"exchange-split {name}: float totals differ "
+                         "across three calls")
+            elif int(total) != int(wt):
+                fail(f"exchange-split {name}: total {int(total)} != plain "
+                     f"{int(wt)}")
+            log(f"{name}: {ev['order'].shape[0]} build slots, "
+                f"{ev['pos0'].shape[0]} probe slots, {int(pairs)} pairs: "
+                + ("exact" if not total.is_floating_point() else
+                   f"abs err {abs(float(total) - float(wt)):.3g}, the same "
+                   "bits over three calls"))
+            plan = sj.launch_plan(ev["order"].shape[0],
+                                  ev["pos0"].shape[0])
+            out[name] = split_call(name, lambda: sj.join_sum(*args),
+                                   plan["launches"], join_sum_bound_ms(ev))
+    print(json.dumps({"exchange_split": out}))
+
+
+def phase_exchange_split(args, report):
+    """``[exchange-split]`` — this script's ``--exchange-split`` mode in a
+    child process; its lines are relayed, its figures go to the A and B
+    rows of the kernels line, and its failure fails the run."""
+    try:
+        r = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--exchange-split",
+             "--seed", str(args.seed)], capture_output=True, text=True,
+            timeout=600, cwd=HERE)
+    except subprocess.TimeoutExpired:
+        fail("exchange-split: no end within 600 s")
+    got = None
+    for line in r.stdout.splitlines():
+        if line.startswith('{"exchange_split"'):
+            got = json.loads(line)["exchange_split"]
+            continue
+        log(f"[exchange-split] {line}")
+    if r.returncode or got is None:
+        fail(f"exchange-split: exit {r.returncode}: {r.stderr[-3000:]}")
+    keys = ("device_ms", "device_ops_per_call", "host_ms",
+            "launches_per_call", "copies_per_call")
+    for row, name in (("radix_exchange", "A q3-shape, valid share "
+                                         f"{EXCHANGE_Q3['shares'][0]}"),
+                      ("shuffle_join", "B int64")):
+        report[row].update({k: got[name][k] for k in keys})
+        report[row]["ms_split"] = got[name]["ms"]
+        report[row]["bound_ms_split"] = got[name]["bound_ms"]
+
+
 def phase_sf10(args, dom, rate, report):
     import numpy as np
     import torch
@@ -3381,6 +3629,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fold-split", action="store_true",
                     help="only the [fold-split] folds (phase 1c), in this "
                          "process")
+    ap.add_argument("--exchange-split", action="store_true",
+                    help="only the [exchange-split] calls of kernels A "
+                         "and B (phase 1d), in this process")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "tidb_tpu_torch")):
         print("chip_smoke: the tidb_tpu_torch package is not beside this "
@@ -3395,9 +3646,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from tidb_tpu_torch.ops import device as pdev
     pdev.set_device("cuda")
-    if args.fold_split:
+    if args.fold_split or args.exchange_split:
         try:
-            fold_split(args.seed)
+            if args.fold_split:
+                fold_split(args.seed)
+            else:
+                exchange_split(args.seed)
         except SmokeFailure as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -3488,6 +3742,8 @@ def main(argv=None) -> int:
         phase_done("build")
         phase_fold_split(args)
         phase_done("fold split")
+        phase_exchange_split(args, report)
+        phase_done("exchange split")
         captured, joins = {}, {}
         dom, s, n_rows, keys = phase_sql_setup(args, captured, joins)
         phase_done("sql set-up")
@@ -3567,7 +3823,9 @@ def main(argv=None) -> int:
              # the fold on the hybrid join's largest fold and the mesh's
              # (ms_mesh above); its launches and copies a call
              "ms_hybrid", "plain_ms_hybrid", "bound_ms_hybrid",
-             "launches_per_call", "copies_per_call")
+             "launches_per_call", "copies_per_call",
+             # kernels A and B at the [exchange-split] shapes
+             "ms_split", "bound_ms_split")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report.values()]}))

@@ -1134,6 +1134,210 @@ def test_dist_steps_on_the_card_match_the_cpu(dev):
     assert [int(x) for x in a[5:]] == [int(x) for x in b[5:]]
 
 
+# -- kernels A and B at the edges of their Hopper designs ---------------------
+# (tests/test_torch_exchange_plan.py mirrors both plans in numpy against
+# the reference on the CPU)
+
+def _partition_both(dev, h, valid, n_dest, n_sub, cap, cols=()):
+    """Kernel A on the card against partition_plain on the CPU: every
+    buffer bit for bit, need and dropped included.  Inputs are numpy."""
+    from tidb_tpu_torch.ops.kernels import radix_exchange as rx
+
+    def t(a, d):
+        return None if a is None else _up(a, d)
+    cpu = torch.device("cpu")
+    got = rx.partition(t(h, dev), t(valid, dev), n_dest, n_sub, cap,
+                       [t(c, dev) for c in cols])
+    want = rx.partition_plain(t(h, cpu), t(valid, cpu), n_dest, n_sub, cap,
+                              [t(c, cpu) for c in cols])
+    torch.cuda.synchronize()
+    for key in ("rows", "valid"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert len(got["cols"]) == len(cols)
+    for a, b in zip(got["cols"], want["cols"]):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+    assert int(got["need"]) == int(want["need"])
+    assert int(got["dropped"]) == int(want["dropped"])
+    return got
+
+
+def _hashes(rng, m):
+    return rng.integers(-(1 << 63), (1 << 63) - 1, m, dtype=np.int64)
+
+
+@pytest.mark.parametrize("m_off", ["0", "1", "tile-1", "tile", "tile+1",
+                                   "5 tiles+3"])
+def test_radix_exchange_tile_edges(dev, m_off):
+    from tidb_tpu_torch.ops.kernels import radix_exchange as rx
+    T = rx.TILE
+    m = {"0": 0, "1": 1, "tile-1": T - 1, "tile": T, "tile+1": T + 1,
+         "5 tiles+3": 5 * T + 3}[m_off]
+    rng = np.random.default_rng(m)
+    cols = [rng.integers(-9, 9, m), rng.random(m) < 0.5]
+    _partition_both(dev, _hashes(rng, m), rng.random(m) < 0.8, 8, 4, 64,
+                    cols)
+
+
+def test_radix_exchange_all_rows_invalid(dev):
+    rng = np.random.default_rng(1)
+    m = 10_000
+    got = _partition_both(dev, _hashes(rng, m), np.zeros(m, bool), 8, 4, 512,
+                          [rng.integers(0, 9, m)])
+    assert int(got["need"]) == 0 and not got["valid"].any()
+
+
+def test_radix_exchange_one_bucket_across_tiles(dev):
+    """Every row in one bucket, over many tiles: the look-back carries
+    the bucket's prefix from tile to tile, in row order; rows past cap
+    are dropped and counted."""
+    from tidb_tpu_torch.ops.kernels import radix_exchange as rx
+    m = 40 * rx.TILE + 77
+    h = np.full(m, 0x0000000500000002, dtype=np.int64)
+    rng = np.random.default_rng(2)
+    got = _partition_both(dev, h, rng.random(m) < 0.9, 8, 4, 1 << 16,
+                          [np.arange(m)])
+    assert int(got["dropped"]) > 0
+    _partition_both(dev, h, None, 8, 4, 1 << 17, [np.arange(m)])
+
+
+@pytest.mark.parametrize("n_dest,n_sub", [(1023, 1), (3, 1), (1, 1)])
+def test_radix_exchange_bucket_counts(dev, n_dest, n_sub):
+    rng = np.random.default_rng(n_dest)
+    m = 200_003
+    _partition_both(dev, _hashes(rng, m), rng.random(m) < 0.7, n_dest, n_sub,
+                    max(8, 2 * m // (n_dest * n_sub)),
+                    [rng.integers(-5, 5, m), rng.random(m)])
+
+
+def test_radix_exchange_cap_one(dev):
+    rng = np.random.default_rng(3)
+    m = 30_000
+    got = _partition_both(dev, _hashes(rng, m), rng.random(m) < 0.9, 8, 4, 1,
+                          [rng.integers(0, 100, m)])
+    assert int(got["dropped"]) > 0
+
+
+def test_radix_exchange_64_mixed_columns(dev):
+    """The most columns, of 1-, 2-, 4- and 8-byte elements; the grid not
+    a multiple of 16 bytes a bucket, so the fill's 16-byte stores meet
+    ragged edges."""
+    rng = np.random.default_rng(4)
+    m = 3 * 2048 + 5
+    types = [np.int8, np.int16, np.int32, np.int64, np.float32, np.float64,
+             np.bool_, np.uint8]
+    cols = []
+    for c in range(64):
+        dt = types[c % len(types)]
+        if dt is np.bool_:
+            cols.append(rng.random(m) < 0.5)
+        elif np.issubdtype(dt, np.floating):
+            cols.append(rng.standard_normal(m).astype(dt))
+        else:
+            info = np.iinfo(dt)
+            cols.append(rng.integers(info.min, info.max, m, dtype=dt,
+                                     endpoint=True))
+    _partition_both(dev, _hashes(rng, m), rng.random(m) < 0.9, 3, 2, 333,
+                    cols)
+
+
+def test_radix_exchange_workspace_reused(dev):
+    """Calls in a row on one stream share the workspace: each takes a new
+    epoch, so the last call's status words never stand for this one's,
+    including across a larger call, a smaller one and the epochs'
+    restart."""
+    from tidb_tpu_torch.ops.kernels import radix_exchange as rx
+    rng = np.random.default_rng(5)
+    shapes = [(50_000, 8, 4, 4096), (50_000, 8, 4, 4096),
+              (300_000, 1023, 1, 512), (7, 2, 2, 8)]
+    for m, n_dest, n_sub, cap in shapes:
+        _partition_both(dev, _hashes(rng, m), rng.random(m) < 0.8, n_dest,
+                        n_sub, cap, [rng.integers(0, 9, m)])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = rx._WS[(dev if dev.index is not None else torch.device(
+        "cuda", torch.cuda.current_device()), stream)]
+    assert ws.epoch >= len(shapes)
+    ws.epoch = rx.EPOCH_LIMIT  # the next call clears the words, epoch 1
+    for m, n_dest, n_sub, cap in shapes[:2]:
+        _partition_both(dev, _hashes(rng, m), rng.random(m) < 0.8, n_dest,
+                        n_sub, cap, [rng.integers(0, 9, m)])
+    assert ws.epoch == 2
+
+
+def _join_sum_both(dev, bv, order, pos0, cnt, pv, pvalid):
+    from tidb_tpu_torch.ops.kernels import shuffle_join as sj
+    args = [None if a is None else _up(a, dev)
+            for a in (bv, order, pos0, cnt, pv, pvalid)]
+    total, pairs = sj.join_sum(*args)
+    want_t, want_p = sj.join_sum_plain(*[
+        None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+        for a in (bv, order, pos0, cnt, pv, pvalid)])
+    torch.cuda.synchronize()
+    assert int(pairs) == int(want_p)
+    if total.is_floating_point():
+        assert np.isclose(float(total), float(want_t), rtol=1e-9, atol=1e-12)
+    else:
+        assert int(total) == int(want_t)
+    return total, pairs
+
+
+def _join_sum_inputs(rng, n, np_, floats):
+    nbv = max(1, n * 3 // 4)
+    bv = rng.standard_normal(n) * 100 if floats else rng.integers(
+        -10**9, 10**9, n)
+    pv = rng.random(np_) if floats else rng.integers(1, 50, np_)
+    pos0 = rng.integers(0, nbv, np_)
+    cnt = np.minimum(rng.integers(0, 5, np_), nbv - pos0)
+    return bv, rng.permutation(n), pos0, cnt, pv, rng.random(np_) < 0.9
+
+
+@pytest.mark.parametrize("n_off", ["tile-1", "tile", "tile+1", "1"])
+@pytest.mark.parametrize("floats", [False, True], ids=["int64", "float64"])
+def test_shuffle_join_tile_edges(dev, n_off, floats):
+    from tidb_tpu_torch.ops.kernels import shuffle_join as sj
+    T = sj.TILE
+    n = {"tile-1": T - 1, "tile": T, "tile+1": T + 1, "1": 1}[n_off]
+    rng = np.random.default_rng(n)
+    _join_sum_both(dev, *_join_sum_inputs(rng, n, 5000, floats))
+
+
+@pytest.mark.parametrize("np_", [0, 1, 700])
+def test_shuffle_join_empty_probe(dev, np_):
+    """No probe row, or none valid: the total and pairs are 0."""
+    rng = np.random.default_rng(np_)
+    bv, order, pos0, cnt, pv, pvalid = _join_sum_inputs(rng, 9000, np_,
+                                                        False)
+    total, pairs = _join_sum_both(dev, bv, order, pos0, cnt, pv,
+                                  np.zeros(np_, bool))
+    assert int(total) == 0 and int(pairs) == 0
+
+
+@pytest.mark.parametrize("floats", [False, True], ids=["int64", "float64"])
+def test_shuffle_join_without_order(dev, floats):
+    """order None: the build values are in key order already."""
+    rng = np.random.default_rng(8)
+    bv, _o, pos0, cnt, pv, pvalid = _join_sum_inputs(rng, 100_000, 300_000,
+                                                     floats)
+    _join_sum_both(dev, bv, None, pos0, cnt, pv, pvalid)
+    _join_sum_both(dev, bv, None, pos0, cnt, pv, None)
+
+
+def test_shuffle_join_float_total_repeats_bit_for_bit(dev):
+    """A float64 total is the same bits over three calls: the look-back
+    adds the tiles' sums in tile order, the probe blocks' partials add in
+    block order."""
+    from tidb_tpu_torch.ops.kernels import shuffle_join as sj
+    rng = np.random.default_rng(9)
+    ins = _join_sum_inputs(rng, 1 << 21, 1 << 21, True)
+    args = [_up(a, dev) for a in ins]
+    bits = set()
+    for _ in range(3):
+        total, _pairs = sj.join_sum(*args)
+        bits.add(int(total.view(torch.int64)))
+    assert len(bits) == 1
+    _join_sum_both(dev, *ins)
+
+
 # -- K2 and K1 at the edges of their Hopper designs ---------------------------
 # (the helpers below take no card: tests/test_torch_vm_agg.py runs the same
 # shapes through the plain versions against the reference on the CPU)

@@ -25,29 +25,51 @@
 // flags) once and writes h and ok; the partition reads h, valid and every
 // column once and writes the grid once (rows, slot_valid and each column).
 //
-// Design.  The partition must be STABLE (slots in row order inside a
-// bucket: K1's `first` and the order of float sums after the exchange
-// depend on it), so it is not an atomics scatter.  Rows are cut into
-// tiles of RX_TILE rows, one warp per tile:
-//   1. rx_hist: each warp counts its tile's rows per bucket in a private
-//      shared-memory histogram and writes it bucket-major, hist[b][tile];
-//   2. rx_scan: one block per bucket scans its row of tiles in tile order
-//      (exclusive, in place) and writes cnt[b], need and dropped;
-//   3. rx_scatter: each warp walks its tile again 32 rows at a time in row
-//      order; __match_any_sync groups the lanes of one bucket, a lane's
-//      rank is the popcount of the lower lanes of its group, and the
-//      group's leader advances the bucket's running slot in shared memory
-//      (warps own whole tiles, so no ordering between warps is needed);
-//   4. rx_fill: the empty slots get zeros.
-// nb + 1 is small (33 at 8 shards x 4 sub-buckets); the wrapper refuses
-// more than RX_MAX_BUCKETS.
+// Design of the partition: ONE launch of rx_partition, whose blocks take
+// tickets in the order they start.  Tickets below n_tiles are tiles of
+// RX_TILE rows; the rest are fill blocks.
+//   1. A tile block reads its rows' h and valid once (coalesced) and
+//      ranks them stably by bucket with a warp multisplit
+//      (__match_any_sync; a lane's rank is the popcount of the lower lanes
+//      of its group) into per-warp bucket counts in shared memory.
+//   2. It publishes its per-bucket counts in status words (tag << 32 |
+//      count; the tag carries the call's epoch, so the words are never
+//      cleared) and finds its per-bucket prefix over the earlier tiles by
+//      decoupled look-back, one thread a bucket.  A bucket's slot is b*cap
+//      + prefix + rank: unlike a sort no global bucket start is needed, so
+//      this one pass places every row, and the last tile's inclusive
+//      counts are cnt, need and dropped exactly.
+//   3. It stages the tile's permutation, sorted by bucket, in shared
+//      memory and writes rows, slot_valid and each column as contiguous
+//      runs a bucket; each column's tile window is first read coalesced
+//      into shared memory and gathered from there.  Slots past cap are
+//      skipped.
+//   4. A fill block waits for the last tile's counts and zeroes only the
+//      empty tail [min(cnt[b], cap), cap) of each bucket, in chunks of
+//      RX_FILL_CHUNK slots, with 16-byte stores.
+// Every block that waits (look-back, fill) waits on tickets taken before
+// its own, by blocks already running, so the grid cannot deadlock.  The
+// last ticket sets the counter back to 0 for the next call on the stream.
 #include "common.cuh"
 
 #define RX_MAX_BUCKETS 1024
 #define RX_MAX_COLS 64
 #define RX_MAX_KEYS 8
-#define RX_WARPS 8
-#define RX_TILE 1024
+#define RX_THREADS 256
+#define RX_WARPS (RX_THREADS / 32)
+#define RX_ITEMS 8
+#define RX_TILE (RX_THREADS * RX_ITEMS)
+#define RX_FILL_CHUNK 4096
+#define RX_MAX_DEVICES 64
+// workspace (u64 words): the ticket, the ready word (the epoch, once the
+// last tile has written the counts), cnt[RX_MAX_BUCKETS], then the status
+// words, status[t * nb + b]
+#define RX_WS_TICKET 0
+#define RX_WS_READY 1
+#define RX_WS_CNT 2
+#define RX_WS_STATUS (RX_WS_CNT + RX_MAX_BUCKETS)
+
+typedef unsigned int u32;
 
 __device__ __forceinline__ u64 mix64(u64 u) {
   u ^= u >> 33;
@@ -95,10 +117,10 @@ struct PartArgs {
   const i64* h;
   const unsigned char* valid;  // may be null: every row
   i64 n_tiles;
-  i64* hist;  // [nb][n_tiles]: counts, then exclusive offsets
-  i64* cnt;   // [nb]
-  u64* need;
-  u64* dropped;
+  i64 n_fill;
+  u64 epoch;  // >= 1; tags 2 epoch + 1 (a tile's count), 2 epoch + 2 (prefix)
+  u64* ws;
+  i64* flags;  // need, dropped
   i64* rows;
   unsigned char* slot_valid;
   int n_cols;
@@ -107,143 +129,297 @@ struct PartArgs {
   int es[RX_MAX_COLS];  // element size in bytes: 1, 2, 4 or 8
 };
 
-__device__ __forceinline__ int bucket_of(const PartArgs& a, i64 i) {
-  if (a.valid && !a.valid[i]) return a.nb;
-  const u64 h = (u64)a.h[i];
-  const u64 d = (h >> 32) % (u64)a.n_dest;
-  const u64 s = h & (u64)(a.n_sub - 1);
-  return (int)(d * (u64)a.n_sub + s);
+// Dynamic shared memory of a tile block (bytes from its start): per-warp
+// bucket counts u32[RX_WARPS][nb], the tile's bucket starts u32[nb] and
+// ends of the slots written u32[nb], the buckets' slot bases i64[nb], the
+// sorted permutation u16[RX_TILE] and its buckets u16[RX_TILE], and a
+// column's tile window (RX_TILE 8-byte elements).  The wrapper mirrors it
+// (radix_exchange.py smem_bytes).
+__host__ __device__ __forceinline__ size_t rx_off_glob(int nb) {
+  return ((size_t)(RX_WARPS + 2) * nb * 4 + 15) & ~(size_t)15;
+}
+__host__ __device__ __forceinline__ size_t rx_off_perm(int nb) {
+  return (rx_off_glob(nb) + (size_t)nb * 8 + 15) & ~(size_t)15;
+}
+__host__ __device__ __forceinline__ size_t rx_off_stage(int nb) {
+  return rx_off_perm(nb) + (size_t)RX_TILE * 4;
+}
+__host__ __device__ __forceinline__ size_t rx_smem_bytes(int nb) {
+  return rx_off_stage(nb) + (size_t)RX_TILE * 8;
 }
 
-__device__ __forceinline__ void copy_elem(const void* src, void* dst, int es,
-                                          i64 i, i64 s) {
-  switch (es) {
-    case 8: ((u64*)dst)[s] = ((const u64*)src)[i]; break;
-    case 4: ((unsigned*)dst)[s] = ((const unsigned*)src)[i]; break;
-    case 2: ((unsigned short*)dst)[s] = ((const unsigned short*)src)[i];
-      break;
-    default: ((unsigned char*)dst)[s] = ((const unsigned char*)src)[i];
-  }
+__device__ __forceinline__ u64 rx_load(const u64* p) {
+  return *(const volatile u64*)p;
 }
 
-__device__ __forceinline__ void zero_elem(void* dst, int es, i64 s) {
-  switch (es) {
-    case 8: ((u64*)dst)[s] = 0; break;
-    case 4: ((unsigned*)dst)[s] = 0; break;
-    case 2: ((unsigned short*)dst)[s] = 0; break;
-    default: ((unsigned char*)dst)[s] = 0;
-  }
+__device__ __forceinline__ void rx_store(u64* p, u64 v) {
+  *(volatile u64*)p = v;
 }
 
-__global__ void rx_hist(PartArgs a) {
-  extern __shared__ int rx_sh[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* hist = rx_sh + w * a.nb;
-  const i64 tile = (i64)blockIdx.x * RX_WARPS + w;
-  if (tile >= a.n_tiles) return;  // the whole warp
-  for (int b = lane; b < a.nb; b += 32) hist[b] = 0;
-  __syncwarp();
-  const i64 base = tile * RX_TILE;
-  for (int r = lane; r < RX_TILE; r += 32) {
-    const i64 i = base + r;
-    if (i >= a.m) break;
-    const int b = bucket_of(a, i);
-    if (b < a.nb) atomicAdd(&hist[b], 1);
-  }
-  __syncwarp();
-  for (int b = lane; b < a.nb; b += 32)
-    a.hist[(i64)b * a.n_tiles + tile] = hist[b];
-}
-
-// Inclusive scan of one value per thread across the block (blockDim a
-// multiple of 32); returns the thread's inclusive prefix and the block
-// total in *sum.
-__device__ __forceinline__ i64 rx_block_scan(i64 v, i64* sum) {
-  __shared__ i64 warp_tot[32];
+// Inclusive scan of one u32 a thread across the block; the block total in
+// *sum.  Every thread calls it.
+__device__ __forceinline__ u32 rx_block_scan(u32 v, u32* sum) {
+  __shared__ u32 warp_tot[RX_WARPS];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   for (int o = 1; o < 32; o <<= 1) {
-    const i64 u = __shfl_up_sync(0xffffffffu, v, o);
+    const u32 u = __shfl_up_sync(0xffffffffu, v, o);
     if (lane >= o) v += u;
   }
   __syncthreads();
   if (lane == 31) warp_tot[w] = v;
   __syncthreads();
-  if (w == 0) {
-    const int nw = blockDim.x >> 5;
-    i64 t = lane < nw ? warp_tot[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const i64 u = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += u;
-    }
-    if (lane < nw) warp_tot[lane] = t;
+  u32 before = 0, tot = 0;
+  for (int i = 0; i < RX_WARPS; ++i) {
+    const u32 x = warp_tot[i];
+    if (i < w) before += x;
+    tot += x;
+  }
+  *sum = tot;
+  return v + before;
+}
+
+// Zeroes bytes [0, n) of p with the block's threads: single bytes up to a
+// 16-byte boundary and after the last one, 16-byte stores between.
+__device__ __forceinline__ void rx_zero(unsigned char* p, i64 n) {
+  i64 head = (i64)((16 - ((uintptr_t)p & 15)) & 15);
+  if (head > n) head = n;
+  const i64 vecs = (n - head) >> 4;
+  for (i64 i = threadIdx.x; i < head; i += RX_THREADS) p[i] = 0;
+  uint4* q = (uint4*)(p + head);
+  for (i64 i = threadIdx.x; i < vecs; i += RX_THREADS)
+    q[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (i64 i = head + vecs * 16 + threadIdx.x; i < n; i += RX_THREADS)
+    p[i] = 0;
+}
+
+// A fill block: the empty tails of the buckets, items (bucket, chunk)
+// f, f + n_fill, ... once the last tile has written the counts.
+__device__ void rx_fill(const PartArgs& a, i64 f) {
+  if (threadIdx.x == 0) {
+    while (rx_load(a.ws + RX_WS_READY) != a.epoch) __nanosleep(256);
+    __threadfence();
   }
   __syncthreads();
-  if (w > 0) v += warp_tot[w - 1];
-  *sum = warp_tot[(blockDim.x >> 5) - 1];
-  return v;
-}
-
-// One block per bucket: exclusive scan of its tile counts, in tile order.
-__global__ void rx_scan(PartArgs a) {
-  const int b = blockIdx.x;
-  i64* row = a.hist + (i64)b * a.n_tiles;
-  i64 carry = 0;
-  for (i64 base = 0; base < a.n_tiles; base += blockDim.x) {
-    const i64 t = base + threadIdx.x;
-    const i64 v = t < a.n_tiles ? row[t] : 0;
-    i64 sum;
-    const i64 inc = rx_block_scan(v, &sum);
-    if (t < a.n_tiles) row[t] = carry + inc - v;
-    carry += sum;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    a.cnt[b] = carry;
-    atomicMax(a.need, (u64)carry);
-    if (carry > a.cap) atomicAdd(a.dropped, (u64)(carry - a.cap));
+  const i64 chunks = (a.cap + RX_FILL_CHUNK - 1) / RX_FILL_CHUNK;
+  const i64 items = (i64)a.nb * chunks;
+  for (i64 it = f; it < items; it += a.n_fill) {
+    const i64 b = it / chunks, ch = it - b * chunks;
+    const i64 cnt = (i64)__ldcg(a.ws + RX_WS_CNT + b);
+    const i64 filled = cnt < a.cap ? cnt : a.cap;
+    const i64 c0 = ch * RX_FILL_CHUNK;
+    const i64 lo = c0 > filled ? c0 : filled;
+    const i64 hi = c0 + RX_FILL_CHUNK < a.cap ? c0 + RX_FILL_CHUNK : a.cap;
+    if (lo >= hi) continue;
+    const i64 s0 = b * a.cap + lo, n = hi - lo;
+    rx_zero((unsigned char*)(a.rows + s0), n * 8);
+    rx_zero(a.slot_valid + s0, n);
+    for (int c = 0; c < a.n_cols; ++c)
+      rx_zero((unsigned char*)a.dst[c] + s0 * a.es[c], n * a.es[c]);
   }
 }
 
-__global__ void rx_scatter(PartArgs a) {
-  extern __shared__ int rx_sh[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* run = rx_sh + w * a.nb;
-  const i64 tile = (i64)blockIdx.x * RX_WARPS + w;
-  if (tile >= a.n_tiles) return;  // the whole warp
-  for (int b = lane; b < a.nb; b += 32)
-    run[b] = (int)a.hist[(i64)b * a.n_tiles + tile];
-  __syncwarp();
-  const i64 base = tile * RX_TILE;
+// One column of a tile: its window read coalesced into shared memory, then
+// each kept sorted position p written at slot s_glob[b] + p.
+template <typename E>
+__device__ __forceinline__ void rx_column(const void* src, void* dst,
+                                          E* stage, i64 base, int n_rows,
+                                          u32 nv, const unsigned short* perm,
+                                          const unsigned short* sbkt,
+                                          const u32* s_lim,
+                                          const i64* s_glob) {
+  const E* s = (const E*)src + base;
+  E* d = (E*)dst;
+  __syncthreads();  // the previous column's gather is done
+  for (int r = threadIdx.x; r < n_rows; r += RX_THREADS) stage[r] = s[r];
+  __syncthreads();
+  for (u32 p = threadIdx.x; p < nv; p += RX_THREADS) {
+    const int b = sbkt[p];
+    if (p < s_lim[b]) d[s_glob[b] + p] = stage[perm[p]];
+  }
+}
+
+__global__ void __launch_bounds__(RX_THREADS) rx_partition(PartArgs a) {
+  extern __shared__ __align__(16) unsigned char rx_smem[];
+  __shared__ u64 s_ticket;
+  __shared__ u32 s_nv;
+  __shared__ i64 s_red[2][RX_WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    const u64 t = atomicAdd((unsigned long long*)(a.ws + RX_WS_TICKET), 1ull);
+    if (t == (u64)(a.n_tiles + a.n_fill - 1))
+      atomicExch((unsigned long long*)(a.ws + RX_WS_TICKET), 0ull);
+    s_ticket = t;
+  }
+  __syncthreads();
+  const i64 t = (i64)s_ticket;
+  if (t >= a.n_tiles) {
+    rx_fill(a, t - a.n_tiles);
+    return;
+  }
+  const int nb = a.nb;
+  u32* whist = (u32*)rx_smem;  // [warp][bucket]
+  u32* s_off = whist + RX_WARPS * nb;
+  u32* s_lim = s_off + nb;
+  i64* s_glob = (i64*)(rx_smem + rx_off_glob(nb));
+  unsigned short* perm = (unsigned short*)(rx_smem + rx_off_perm(nb));
+  unsigned short* sbkt = perm + RX_TILE;
+  unsigned char* stage = rx_smem + rx_off_stage(nb);
+  for (int i = tid; i < RX_WARPS * nb; i += RX_THREADS) whist[i] = 0;
+
+  // -- 1. read h and valid once; bucket ids (nb: invalid or past m) ------
+  const i64 base = t * RX_TILE;
+  const int wbase = warp * 32 * RX_ITEMS;
+  u64 hv[RX_ITEMS];
+  bool ok[RX_ITEMS];
+#pragma unroll
+  for (int k = 0; k < RX_ITEMS; ++k) {
+    const i64 i = base + wbase + k * 32 + lane;
+    ok[k] = i < a.m && (a.valid == nullptr || a.valid[i] != 0);
+    hv[k] = i < a.m ? (u64)a.h[i] : 0;
+  }
+  int bk[RX_ITEMS];
+#pragma unroll
+  for (int k = 0; k < RX_ITEMS; ++k) {
+    const u32 d = (u32)(hv[k] >> 32) % (u32)a.n_dest;
+    const u32 s = (u32)hv[k] & (u32)(a.n_sub - 1);
+    bk[k] = ok[k] ? (int)(d * (u32)a.n_sub + s) : nb;
+  }
+  __syncthreads();  // whist is zero
+
+  // -- warp multisplit: items in (k, lane) order are the warp's rows in order
+  u32* wh = whist + warp * nb;
   const unsigned lower = (1u << lane) - 1u;
-  for (int r0 = 0; r0 < RX_TILE && base + r0 < a.m; r0 += 32) {
-    const i64 i = base + r0 + lane;
-    const int b = i < a.m ? bucket_of(a, i) : a.nb;
+  u32 rk[RX_ITEMS];
+#pragma unroll
+  for (int k = 0; k < RX_ITEMS; ++k) {
+    const int b = bk[k];
     const unsigned grp = __match_any_sync(0xffffffffu, b);
-    const int rank = __popc(grp & lower);
-    const int pos = b < a.nb ? run[b] + rank : 0;
+    const u32 before = b < nb ? wh[b] : 0;
     __syncwarp();
-    if (b < a.nb && rank == 0) run[b] += __popc(grp);
+    if (b < nb && (grp >> lane) == 1u) wh[b] = before + __popc(grp);
     __syncwarp();
-    if (b < a.nb && pos < a.cap) {
-      const i64 s = (i64)b * a.cap + pos;
-      a.rows[s] = i;
-      a.slot_valid[s] = 1;
-      for (int c = 0; c < a.n_cols; ++c)
-        copy_elem(a.src[c], a.dst[c], a.es[c], i, s);
+    rk[k] = before + __popc(grp & lower);
+  }
+  __syncthreads();
+
+  // -- 2. the tile's counts (each warp's prefix in place), published ------
+  u64* status = a.ws + RX_WS_STATUS;
+  const u64 agg_tag = 2 * a.epoch + 1, pre_tag = 2 * a.epoch + 2;
+  for (int b = tid; b < nb; b += RX_THREADS) {
+    u32 c = 0;
+    for (int w = 0; w < RX_WARPS; ++w) {
+      const u32 x = whist[w * nb + b];
+      whist[w * nb + b] = c;
+      c += x;
+    }
+    s_lim[b] = c;
+    rx_store(status + t * nb + b, ((t == 0 ? pre_tag : agg_tag) << 32) | c);
+  }
+  __syncthreads();
+  u32 nv = 0;  // the tile's kept rows
+  for (int b0 = 0; b0 < nb; b0 += RX_THREADS) {
+    const int b = b0 + tid;
+    const u32 c = b < nb ? s_lim[b] : 0;
+    u32 tot;
+    const u32 inc = rx_block_scan(c, &tot);
+    if (b < nb) s_off[b] = nv + inc - c;
+    nv += tot;
+  }
+  // the look-back, one thread a bucket
+  const bool last = t == a.n_tiles - 1;
+  i64 need = 0, dropped = 0;
+  for (int b = tid; b < nb; b += RX_THREADS) {
+    const u32 c = s_lim[b];
+    u32 excl = 0;
+    if (t > 0) {
+      for (i64 j = t - 1;;) {
+        const u64 s = rx_load(status + j * nb + b);
+        const u64 tag = s >> 32;
+        if (tag < agg_tag) continue;  // not published yet in this call
+        excl += (u32)s;
+        if (tag == pre_tag) break;
+        --j;
+      }
+      rx_store(status + t * nb + b, (pre_tag << 32) | (excl + c));
+    }
+    const i64 room = a.cap - (i64)excl;
+    const u32 kept = room <= 0 ? 0u : (room < (i64)c ? (u32)room : c);
+    s_glob[b] = (i64)b * a.cap + excl - s_off[b];
+    s_lim[b] = s_off[b] + kept;
+    if (last) {
+      const i64 total = (i64)excl + c;
+      a.ws[RX_WS_CNT + b] = (u64)total;
+      need = need > total ? need : total;
+      dropped += total > a.cap ? total - a.cap : 0;
     }
   }
-}
-
-__global__ void rx_fill(PartArgs a) {
-  const i64 size = (i64)a.nb * a.cap;
-  for (i64 s = (i64)blockIdx.x * blockDim.x + threadIdx.x; s < size;
-       s += (i64)gridDim.x * blockDim.x) {
-    const i64 b = s / a.cap, c = s - b * a.cap;
-    const i64 filled = a.cnt[b] < a.cap ? a.cnt[b] : a.cap;
-    if (c < filled) continue;
-    a.rows[s] = 0;
-    a.slot_valid[s] = 0;
-    for (int k = 0; k < a.n_cols; ++k) zero_elem(a.dst[k], a.es[k], s);
+  if (last) {
+    __threadfence();  // the counts before the ready word
+    for (int o = 16; o > 0; o >>= 1) {
+      const i64 x = __shfl_down_sync(0xffffffffu, need, o);
+      need = need > x ? need : x;
+      dropped += __shfl_down_sync(0xffffffffu, dropped, o);
+    }
+    if (lane == 0) {
+      s_red[0][warp] = need;
+      s_red[1][warp] = dropped;
+    }
+  }
+  // -- 3. the permutation sorted by bucket, staged ------------------------
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < RX_ITEMS; ++k) {
+    const int b = bk[k];
+    if (b < nb) {
+      const u32 p = s_off[b] + wh[b] + rk[k];
+      perm[p] = (unsigned short)(wbase + k * 32 + lane);
+      sbkt[p] = (unsigned short)b;
+    }
+  }
+  if (last && tid == 0) {
+    i64 nd = 0, dr = 0;
+    for (int w = 0; w < RX_WARPS; ++w) {
+      nd = nd > s_red[0][w] ? nd : s_red[0][w];
+      dr += s_red[1][w];
+    }
+    a.flags[0] = nd;
+    a.flags[1] = dr;
+    __threadfence();
+    rx_store(a.ws + RX_WS_READY, a.epoch);
+  }
+  if (tid == 0) s_nv = nv;
+  __syncthreads();
+  nv = s_nv;
+  if (nv == 0) return;
+  for (u32 p = tid; p < nv; p += RX_THREADS) {
+    const int b = sbkt[p];
+    if (p < s_lim[b]) {
+      const i64 s = s_glob[b] + p;
+      a.rows[s] = base + perm[p];
+      a.slot_valid[s] = 1;
+    }
+  }
+  const i64 left = a.m - base;
+  const int n_rows = left < RX_TILE ? (int)left : RX_TILE;
+  for (int c = 0; c < a.n_cols; ++c) {
+    switch (a.es[c]) {
+      case 8:
+        rx_column<u64>(a.src[c], a.dst[c], (u64*)stage, base, n_rows, nv,
+                       perm, sbkt, s_lim, s_glob);
+        break;
+      case 4:
+        rx_column<u32>(a.src[c], a.dst[c], (u32*)stage, base, n_rows, nv,
+                       perm, sbkt, s_lim, s_glob);
+        break;
+      case 2:
+        rx_column<unsigned short>(a.src[c], a.dst[c],
+                                  (unsigned short*)stage, base, n_rows, nv,
+                                  perm, sbkt, s_lim, s_glob);
+        break;
+      default:
+        rx_column<unsigned char>(a.src[c], a.dst[c], stage, base, n_rows,
+                                 nv, perm, sbkt, s_lim, s_glob);
+    }
   }
 }
 
@@ -268,10 +444,13 @@ extern "C" int radix_hash_run(const i64* hdr, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// hdr (int64): [m, n_dest, n_sub, cap, h, valid, n_tiles, hist, cnt, need,
-//               dropped, rows, slot_valid, n_cols,
+// hdr (int64): [m, n_dest, n_sub, cap, h, valid, n_tiles, n_fill, epoch,
+//               ws, flags, rows, slot_valid, n_cols,
 //               then per column: src, dst, element size]
-// need and dropped must be zero on entry; hist holds nb * n_tiles entries.
+// n_tiles = max(1, ceil(m / RX_TILE)) (an empty call still writes the
+// counts); ws holds RX_WS_STATUS + n_tiles * nb words, zeroed when
+// allocated, and no call with a later epoch has run on it; flags (need,
+// dropped) 2 int64.
 extern "C" int radix_partition_run(const i64* hdr, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   PartArgs a;
@@ -283,35 +462,42 @@ extern "C" int radix_partition_run(const i64* hdr, void* stream) {
   a.h = (const i64*)hdr[4];
   a.valid = (const unsigned char*)hdr[5];
   a.n_tiles = hdr[6];
-  a.hist = (i64*)hdr[7];
-  a.cnt = (i64*)hdr[8];
-  a.need = (u64*)hdr[9];
-  a.dropped = (u64*)hdr[10];
+  a.n_fill = hdr[7];
+  a.epoch = (u64)hdr[8];
+  a.ws = (u64*)hdr[9];
+  a.flags = (i64*)hdr[10];
   a.rows = (i64*)hdr[11];
   a.slot_valid = (unsigned char*)hdr[12];
   a.n_cols = (int)hdr[13];
-  if (a.n_dest < 1 || a.n_sub < 1 || (a.n_sub & (a.n_sub - 1)) != 0 ||
-      a.nb + 1 > RX_MAX_BUCKETS || a.cap < 1 || a.n_cols < 0 ||
-      a.n_cols > RX_MAX_COLS)
+  const i64 want_tiles = a.m > 0 ? (a.m + RX_TILE - 1) / RX_TILE : 1;
+  if (a.m < 0 || a.m >= (1LL << 31) || a.n_dest < 1 || a.n_sub < 1 ||
+      (a.n_sub & (a.n_sub - 1)) != 0 || a.nb + 1 > RX_MAX_BUCKETS ||
+      a.cap < 1 || a.n_cols < 0 || a.n_cols > RX_MAX_COLS ||
+      a.n_tiles != want_tiles || a.n_fill < 1 || a.epoch < 1 ||
+      a.epoch >= (1ULL << 31) - 1)
     return (int)cudaErrorInvalidValue;
   for (int c = 0; c < a.n_cols; ++c) {
     a.src[c] = (const void*)hdr[14 + 3 * c];
     a.dst[c] = (void*)hdr[15 + 3 * c];
     a.es[c] = (int)hdr[16 + 3 * c];
+    if (a.es[c] != 1 && a.es[c] != 2 && a.es[c] != 4 && a.es[c] != 8)
+      return (int)cudaErrorInvalidValue;
   }
-  const size_t shmem = (size_t)RX_WARPS * a.nb * sizeof(int);
-  const unsigned blocks = (unsigned)((a.n_tiles + RX_WARPS - 1) / RX_WARPS);
-  cudaError_t e;
-  if (a.n_tiles > 0) {
-    rx_hist<<<blocks, RX_WARPS * 32, shmem, st>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // the most shared memory any call takes, allowed once a device
+  static bool smem_set[RX_MAX_DEVICES];
+  int device;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  if (device < 0 || device >= RX_MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
+  if (!smem_set[device]) {
+    e = cudaFuncSetAttribute(rx_partition,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)rx_smem_bytes(RX_MAX_BUCKETS - 1));
+    if (e != cudaSuccess) return (int)e;
+    smem_set[device] = true;
   }
-  rx_scan<<<(unsigned)a.nb, TIDB_THREADS, 0, st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (a.n_tiles > 0) {
-    rx_scatter<<<blocks, RX_WARPS * 32, shmem, st>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-  rx_fill<<<grid_for((i64)a.nb * a.cap), TIDB_THREADS, 0, st>>>(a);
+  rx_partition<<<(unsigned)(a.n_tiles + a.n_fill), RX_THREADS,
+                 rx_smem_bytes(a.nb), st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -15,24 +15,46 @@
 // int64 values wrap as int64 does (exact); with a float64 side the
 // product and total are float64 (jnp's promotion).  Float results differ
 // from the reference's jnp.cumsum + jnp.sum + psum in summation order
-// only: within rtol 1e-9 / atol 1e-12.
+// only: within rtol 1e-9 / atol 1e-12.  They repeat bit for bit from run
+// to run: no atomics add a value, and every sum has one fixed order.
 //
 // Bound on the card: memory.  The build values and the order, pos0, cnt,
 // the probe values and pvalid are each read once (csum is written and
 // read back once more, and each probe row reads two csum entries at
-// random).
+// random: 16 MB at 2^21 slots, served from L2).
 //
-// Design: the three-pass scan of join_expand.cu over tiles of 2048 sorted
-// positions (tile sums; one block scans them; each tile rescans its values
-// and writes csum), then one thread per probe row, a fixed-order block
-// reduction into per-block partials, and one block that adds the partials
-// in block order — no atomics, so float totals repeat bit for bit.
+// Design: ONE launch of sj_run, whose blocks take tickets in the order
+// they start.  Tickets below n_tiles scan a tile of SJ_TILE sorted
+// positions, SJ_CHUNK at a step: each gathers its bv[order[m]] once,
+// scans them in the block into local prefixes staged in shared memory,
+// finds its prefix by decoupled look-back over the earlier tiles and
+// writes csum.  Two steps a tile halve the tiles, and with them the
+// look-back's walk, at 32 KB of shared memory a block.  For floats the look-back stays exact run to run: a tile's
+// prefix is the nearest earlier inclusive prefix followed by the
+// aggregates after it, added in tile order, so every prefix equals the
+// left fold ((agg_0 + agg_1) + agg_2) + ... whichever tiles had published.
+// The other tickets are probe blocks: each reads its first rows, waits
+// until every tile has written csum (all those tickets were taken before
+// its own, by blocks already running), sums its rows in a fixed
+// grid-stride order with a
+// fixed-shape block reduction into a partial, and the last probe block to
+// finish adds the partials in block order with a fixed-shape reduction.
+// The status words carry the call's epoch, so no launch clears them; the
+// last ticket and the last probe block set the counters back to 0.
 #include "common.cuh"
 
+#define SJ_THREADS 256
+#define SJ_WARPS (SJ_THREADS / 32)
 #define SJ_ITEMS 8
-#define SJ_TILE (TIDB_THREADS * SJ_ITEMS)
-#define SJ_SCAN_THREADS 1024
+#define SJ_CHUNK (SJ_THREADS * SJ_ITEMS)  // positions a scan step takes
+#define SJ_CHUNKS 2                       // scan steps a tile
+#define SJ_TILE (SJ_CHUNK * SJ_CHUNKS)
 #define SJ_MAX_BLOCKS (132 * 8)
+#define SJ_ROWS 4  // probe rows a thread loads before it adds them
+#define SJ_AGG 1u
+#define SJ_INCL 2u
+
+typedef unsigned int u32;
 
 struct SjArgs {
   i64 n;  // sorted build positions
@@ -46,27 +68,22 @@ struct SjArgs {
   int pv_f;
   const unsigned char* pvalid;  // may be null: every row
   int out_f;                    // total in float64
-  i64* tile_sums;               // int64 or float64 bits
-  i64* tile_offs;
-  i64* csum;  // n + 1 entries, int64 or float64 bits
-  i64* part_total;
+  i64 n_tiles, n_probe;
+  u64 epoch;
+  u64* ctr;   // ticket, tiles done, probe blocks done
+  u64* flag;  // per tile: epoch << 2 | state
+  i64* agg;   // per tile, int64 or float64 bits
+  i64* incl;
+  i64* part_total;  // per probe block
   i64* part_pairs;
-  i64* total;
-  i64* pairs;
+  i64* csum;  // n + 1 entries, int64 or float64 bits
+  i64* res;   // total, pairs
 };
 
 union Num {
   i64 i;
   double f;
 };
-
-__device__ __forceinline__ Num bval(const SjArgs& a, i64 m) {
-  const i64 r = a.order ? a.order[m] : m;
-  Num v;
-  if (a.bv_f) v.f = ((const double*)a.bv)[r];
-  else v.i = ((const i64*)a.bv)[r];
-  return v;
-}
 
 __device__ __forceinline__ Num add(Num x, Num y, int f) {
   Num r;
@@ -81,52 +98,28 @@ __device__ __forceinline__ Num zero() {
   return z;
 }
 
-__device__ __forceinline__ Num shfl_up(Num v, int o) {
-  Num r;
-  r.i = __shfl_up_sync(0xffffffffu, v.i, o);
-  return r;
-}
-
-__device__ __forceinline__ Num shfl_down(Num v, int o) {
-  Num r;
-  r.i = __shfl_down_sync(0xffffffffu, v.i, o);
-  return r;
-}
-
-// Inclusive block scan (blockDim a multiple of 32, at most 1024).
-__device__ __forceinline__ Num sj_block_scan(Num v, Num* sum, int f) {
-  __shared__ i64 warp_tot[32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const Num u = shfl_up(v, o);
-    if (lane >= o) v = add(v, u, f);
-  }
-  __syncthreads();
-  if (lane == 31) warp_tot[w] = v.i;
-  __syncthreads();
-  if (w == 0) {
-    const int nw = blockDim.x >> 5;
-    Num t;
-    t.i = lane < nw ? warp_tot[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const Num u = shfl_up(t, o);
-      if (lane >= o) t = add(t, u, f);
-    }
-    if (lane < nw) warp_tot[lane] = t.i;
-  }
-  __syncthreads();
-  if (w > 0) {
-    Num p;
-    p.i = warp_tot[w - 1];
-    v = add(v, p, f);
-  }
-  sum->i = warp_tot[(blockDim.x >> 5) - 1];
+__device__ __forceinline__ Num num(i64 bits) {
+  Num v;
+  v.i = bits;
   return v;
 }
 
-// Fixed-order block sum; the result is valid in thread 0.
+__device__ __forceinline__ Num shfl(Num v, int src) {
+  return num(__shfl_sync(0xffffffffu, v.i, src));
+}
+
+__device__ __forceinline__ Num shfl_up(Num v, int o) {
+  return num(__shfl_up_sync(0xffffffffu, v.i, o));
+}
+
+__device__ __forceinline__ Num shfl_down(Num v, int o) {
+  return num(__shfl_down_sync(0xffffffffu, v.i, o));
+}
+
+// Fixed-order block sum; the result is valid in thread 0.  Every thread
+// calls it.
 __device__ __forceinline__ Num sj_block_sum(Num v, int f) {
-  __shared__ i64 warp_part[32];
+  __shared__ i64 warp_part[SJ_WARPS];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   for (int o = 16; o > 0; o >>= 1) v = add(v, shfl_down(v, o), f);
   __syncthreads();
@@ -134,134 +127,254 @@ __device__ __forceinline__ Num sj_block_sum(Num v, int f) {
   __syncthreads();
   Num t = zero();
   if (w == 0) {
-    if (lane < (int)(blockDim.x >> 5)) t.i = warp_part[lane];
+    if (lane < SJ_WARPS) t.i = warp_part[lane];
     for (int o = 16; o > 0; o >>= 1) t = add(t, shfl_down(t, o), f);
   }
   return t;
 }
 
-__global__ void sj_tile_sums(SjArgs a) {
-  const i64 base = (i64)blockIdx.x * SJ_TILE + (i64)threadIdx.x * SJ_ITEMS;
-  Num s = zero();
-#pragma unroll
-  for (int j = 0; j < SJ_ITEMS; ++j)
-    if (base + j < a.n) s = add(s, bval(a, base + j), a.bv_f);
-  const Num t = sj_block_sum(s, a.bv_f);
-  if (threadIdx.x == 0) a.tile_sums[blockIdx.x] = t.i;
+// Lane 0: publish tile t's aggregate or inclusive prefix.
+__device__ __forceinline__ void sj_publish(const SjArgs& a, i64 t, u32 state,
+                                           Num v) {
+  if (state == SJ_INCL)
+    *(volatile i64*)&a.incl[t] = v.i;
+  else
+    *(volatile i64*)&a.agg[t] = v.i;
+  __threadfence();
+  *(volatile u64*)&a.flag[t] = (a.epoch << 2) | state;
 }
 
-__global__ void sj_scan_tiles(SjArgs a, i64 n_tiles) {
-  __shared__ i64 incs[SJ_SCAN_THREADS];
-  Num carry = zero();
-  for (i64 base = 0; base < n_tiles; base += blockDim.x) {
-    const i64 t = base + threadIdx.x;
-    Num v = zero();
-    if (t < n_tiles) v.i = a.tile_sums[t];
-    Num sum;
-    const Num inc = sj_block_scan(v, &sum, a.bv_f);
-    incs[threadIdx.x] = inc.i;
-    __syncthreads();
-    if (t < n_tiles) {
-      // exclusive prefix: the previous thread's inclusive one (for
-      // floats the same additions, never a subtraction)
-      Num ex = zero();
-      if (threadIdx.x > 0) ex.i = incs[threadIdx.x - 1];
-      a.tile_offs[t] = add(carry, ex, a.bv_f).i;
+// Lanes: the flag and value of tile q (before tile 0: an inclusive zero),
+// once the tile has published in this call.
+__device__ __forceinline__ Num sj_peek(const SjArgs& a, i64 q, u32* state) {
+  if (q < 0) {
+    *state = SJ_INCL;
+    return zero();
+  }
+  u64 fl;
+  do {
+    fl = *(volatile u64*)&a.flag[q];
+  } while ((fl >> 2) != a.epoch);
+  __threadfence();
+  *state = (u32)(fl & 3);
+  return num(*state == SJ_INCL ? *(volatile i64*)&a.incl[q]
+                               : *(volatile i64*)&a.agg[q]);
+}
+
+// acc, then the values of lanes from - 1 down to 0 (tiles in ascending
+// order), added one by one; every lane gets the result.
+__device__ __forceinline__ Num sj_fold(Num acc, Num v, int from, int f) {
+#pragma unroll
+  for (int i = 31; i >= 0; --i) {
+    const Num x = shfl(v, i);
+    if (i < from) acc = add(acc, x, f);
+  }
+  return acc;
+}
+
+// Warp 0: the exclusive prefix of tile t, whose own sum is `agg`.  It
+// walks back 32 tiles at a time to the nearest tile that has published
+// its inclusive prefix, then adds the aggregates after that tile in tile
+// order: the left fold ((agg_0 + agg_1) + agg_2) + ..., bit for bit,
+// whichever tiles had published.
+__device__ Num sj_lookback(const SjArgs& a, i64 t, Num agg, int f) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) sj_publish(a, t, t == 0 ? SJ_INCL : SJ_AGG, agg);
+  if (t == 0) return zero();
+  i64 top = t - 1;  // the window: tiles top - lane
+  u32 state;
+  Num v = sj_peek(a, top - lane, &state);
+  unsigned m;
+  while ((m = __ballot_sync(0xffffffffu, state == SJ_INCL)) == 0) {
+    top -= 32;
+    v = sj_peek(a, top - lane, &state);
+  }
+  const int stop = __ffs(m) - 1;  // the nearest inclusive prefix
+  Num acc = sj_fold(shfl(v, stop), v, stop, f);
+  for (top += 32; top < t; top += 32)  // the windows after it: aggregates
+    acc = sj_fold(acc, num(*(volatile i64*)&a.agg[top - lane]), 32, f);
+  if (lane == 0) sj_publish(a, t, SJ_INCL, add(acc, agg, f));
+  return acc;
+}
+
+__device__ void sj_scan_tile(const SjArgs& a, i64 t) {
+  extern __shared__ i64 s_loc[];  // [SJ_TILE] the tile's local prefixes
+  __shared__ i64 s_wex[SJ_ITEMS][SJ_WARPS];  // warp totals' exclusive prefix
+  __shared__ i64 s_ctot[SJ_ITEMS];           // row totals
+  __shared__ i64 s_pre;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int f = a.bv_f;
+  const i64 base = t * SJ_TILE;
+  Num run = zero();  // the tile's positions before this step
+  for (int ch = 0; ch < SJ_CHUNKS; ++ch) {
+    // position cb + j * SJ_THREADS + tid: loads and stores coalesced
+    const i64 cb = base + (i64)ch * SJ_CHUNK;
+    i64 idx[SJ_ITEMS];
+#pragma unroll
+    for (int j = 0; j < SJ_ITEMS; ++j) {
+      const i64 r = cb + (i64)j * SJ_THREADS + tid;
+      idx[j] = r < a.n ? (a.order ? a.order[r] : r) : -1;
     }
-    carry = add(carry, sum, a.bv_f);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) a.csum[0] = 0;
-}
-
-__global__ void sj_scan(SjArgs a) {
-  const i64 base = (i64)blockIdx.x * SJ_TILE + (i64)threadIdx.x * SJ_ITEMS;
-  Num e[SJ_ITEMS];
-  Num s = zero();
+    Num x[SJ_ITEMS];
 #pragma unroll
-  for (int j = 0; j < SJ_ITEMS; ++j) {
-    e[j] = base + j < a.n ? bval(a, base + j) : zero();
-    s = add(s, e[j], a.bv_f);
+    for (int j = 0; j < SJ_ITEMS; ++j)
+      x[j] = idx[j] >= 0 ? num(((const i64*)a.bv)[idx[j]]) : zero();
+    // each row j: a warp inclusive scan, then the warps' totals
+#pragma unroll
+    for (int j = 0; j < SJ_ITEMS; ++j) {
+      for (int o = 1; o < 32; o <<= 1) {
+        const Num u = shfl_up(x[j], o);
+        if (lane >= o) x[j] = add(x[j], u, f);
+      }
+      if (lane == 31) s_wex[j][warp] = x[j].i;
+    }
+    __syncthreads();
+    for (int j = warp; j < SJ_ITEMS; j += SJ_WARPS) {  // row j's totals
+      Num w = lane < SJ_WARPS ? num(s_wex[j][lane]) : zero();
+      for (int o = 1; o < SJ_WARPS; o <<= 1) {
+        const Num u = shfl_up(w, o);
+        if (lane >= o) w = add(w, u, f);
+      }
+      const Num ex = shfl_up(w, 1);  // exclusive, never a subtraction
+      if (lane < SJ_WARPS) s_wex[j][lane] = lane == 0 ? 0 : ex.i;
+      if (lane == SJ_WARPS - 1) s_ctot[j] = w.i;
+    }
+    __syncthreads();
+    // row j's prefix: the rows before it in row order, then the warps
+    // before this one
+#pragma unroll
+    for (int j = 0; j < SJ_ITEMS; ++j) {
+      s_loc[ch * SJ_CHUNK + j * SJ_THREADS + tid] =
+          add(add(run, num(s_wex[j][warp]), f), x[j], f).i;
+      run = add(run, num(s_ctot[j]), f);
+    }
+    __syncthreads();  // s_wex and s_ctot are read
   }
-  Num sum;
-  const Num inc = sj_block_scan(s, &sum, a.bv_f);
-  Num off;
-  off.i = a.tile_offs[blockIdx.x];
-  // the thread's exclusive prefix inside the tile
-  __shared__ i64 incs[TIDB_THREADS];
-  incs[threadIdx.x] = inc.i;
+  if (warp == 0) {
+    const Num pre = sj_lookback(a, t, run, f);
+    if (lane == 0) s_pre = pre.i;
+  }
   __syncthreads();
-  Num run = off;
-  if (threadIdx.x > 0) {
-    Num p;
-    p.i = incs[threadIdx.x - 1];
-    run = add(run, p, a.bv_f);
+  const Num pre = num(s_pre);
+  for (int p = tid; p < SJ_TILE; p += SJ_THREADS) {
+    const i64 r = base + p;
+    if (r < a.n) a.csum[r + 1] = add(pre, num(s_loc[p]), f).i;
   }
+  if (t == 0 && tid == 0) a.csum[0] = 0;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) atomicAdd((unsigned long long*)&a.ctr[1], 1ull);
+}
+
+// A thread's next SJ_ROWS probe rows i0, i0 + stride, ...: the match
+// count (0 for an invalid row or past np), its start and the probe value.
+__device__ __forceinline__ void sj_probe_load(const SjArgs& a, i64 i0,
+                                              i64 stride, i64* c, i64* p0,
+                                              i64* pv) {
 #pragma unroll
-  for (int j = 0; j < SJ_ITEMS; ++j) {
-    if (base + j >= a.n) break;
-    run = add(run, e[j], a.bv_f);
-    a.csum[base + j + 1] = run.i;
+  for (int u = 0; u < SJ_ROWS; ++u) {
+    const i64 i = i0 + u * stride;
+    const bool in = i < a.np && (a.pvalid == nullptr || a.pvalid[i]);
+    c[u] = in ? a.cnt[i] : 0;
+    p0[u] = c[u] > 0 ? a.pos0[i] : 0;
+    pv[u] = c[u] > 0 ? ((const i64*)a.pv)[i] : 0;
   }
 }
 
-__global__ void sj_probe(SjArgs a) {
-  Num t = zero();
+__device__ void sj_probe_block(const SjArgs& a, i64 q) {
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int f = a.out_f;
+  const i64 stride = a.n_probe * SJ_THREADS;
+  i64 i0 = q * SJ_THREADS + tid;
+  i64 c[SJ_ROWS], p0[SJ_ROWS], pv[SJ_ROWS];
+  sj_probe_load(a, i0, stride, c, p0, pv);  // while the scan may still run
+  if (tid == 0) {
+    while (*(volatile u64*)&a.ctr[1] < (u64)a.n_tiles) __nanosleep(256);
+    __threadfence();
+  }
+  __syncthreads();
+  Num tsum = zero();
   i64 pairs = 0;
-  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < a.np;
-       i += (i64)gridDim.x * blockDim.x) {
-    if (a.pvalid && !a.pvalid[i]) continue;
-    const i64 c = a.cnt[i];
-    if (c <= 0) continue;
-    const i64 p0 = a.pos0[i];
-    Num hi, lo;
-    hi.i = a.csum[p0 + c];
-    lo.i = a.csum[p0];
-    Num ms;
-    if (a.bv_f) ms.f = hi.f - lo.f;
-    else ms.i = wrap_sub(hi.i, lo.i);
-    Num prod;
-    if (a.out_f) {
-      const double x = a.pv_f ? ((const double*)a.pv)[i]
-                              : (double)((const i64*)a.pv)[i];
-      const double y = a.bv_f ? ms.f : (double)ms.i;
-      prod.f = x * y;
-    } else {
-      prod.i = wrap_mul(((const i64*)a.pv)[i], ms.i);
+  for (;;) {
+    Num hi[SJ_ROWS], lo[SJ_ROWS];
+#pragma unroll
+    for (int u = 0; u < SJ_ROWS; ++u) {
+      hi[u] = num(c[u] > 0 ? __ldcg(a.csum + p0[u] + c[u]) : 0);
+      lo[u] = num(c[u] > 0 ? __ldcg(a.csum + p0[u]) : 0);
     }
-    t = add(t, prod, a.out_f);
-    pairs += c;
+#pragma unroll
+    for (int u = 0; u < SJ_ROWS; ++u) {  // in row order
+      if (c[u] <= 0) continue;
+      Num prod;
+      if (a.out_f) {
+        const double ms = a.bv_f ? hi[u].f - lo[u].f
+                                 : (double)wrap_sub(hi[u].i, lo[u].i);
+        const double x = a.pv_f ? num(pv[u]).f : (double)pv[u];
+        prod.f = x * ms;
+      } else {
+        prod.i = wrap_mul(pv[u], wrap_sub(hi[u].i, lo[u].i));
+      }
+      tsum = add(tsum, prod, f);
+      pairs += c[u];
+    }
+    i0 += SJ_ROWS * stride;
+    if (i0 >= a.np) break;
+    sj_probe_load(a, i0, stride, c, p0, pv);
   }
-  const Num bt = sj_block_sum(t, a.out_f);
-  Num pc;
-  pc.i = pairs;
-  const Num bp = sj_block_sum(pc, 0);
-  if (threadIdx.x == 0) {
-    a.part_total[blockIdx.x] = bt.i;
-    a.part_pairs[blockIdx.x] = bp.i;
+  const Num bt = sj_block_sum(tsum, f);
+  const Num bp = sj_block_sum(num(pairs), 0);
+  if (tid == 0) {
+    *(volatile i64*)&a.part_total[q] = bt.i;
+    *(volatile i64*)&a.part_pairs[q] = bp.i;
+    __threadfence();
+    const u64 done = atomicAdd((unsigned long long*)&a.ctr[2], 1ull);
+    s_last = done == (u64)(a.n_probe - 1);
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last probe block: the partials in block order
+  Num t = zero();
+  i64 p = 0;
+  for (i64 k = tid; k < a.n_probe; k += SJ_THREADS) {
+    t = add(t, num(__ldcg(a.part_total + k)), f);
+    p += __ldcg(a.part_pairs + k);
+  }
+  const Num tt = sj_block_sum(t, f);
+  const Num tp = sj_block_sum(num(p), 0);
+  if (tid == 0) {
+    a.res[0] = tt.i;
+    a.res[1] = tp.i;
+    // every tile and probe block is past the counters
+    *(volatile u64*)&a.ctr[1] = 0;
+    *(volatile u64*)&a.ctr[2] = 0;
   }
 }
 
-// One thread adds the per-block partials in block order.
-__global__ void sj_final(SjArgs a, int n_blocks) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  Num t = zero();
-  i64 pairs = 0;
-  for (int b = 0; b < n_blocks; ++b) {
-    Num p;
-    p.i = a.part_total[b];
-    t = add(t, p, a.out_f);
-    pairs += a.part_pairs[b];
+__global__ void __launch_bounds__(SJ_THREADS) sj_run(SjArgs a) {
+  __shared__ i64 s_ticket;
+  if (threadIdx.x == 0) {
+    const u64 t = atomicAdd((unsigned long long*)&a.ctr[0], 1ull);
+    if (t == (u64)(a.n_tiles + a.n_probe - 1))
+      atomicExch((unsigned long long*)&a.ctr[0], 0ull);
+    s_ticket = (i64)t;
   }
-  *a.total = t.i;
-  *a.pairs = pairs;
+  __syncthreads();
+  const i64 t = s_ticket;
+  if (t < a.n_tiles)
+    sj_scan_tile(a, t);
+  else
+    sj_probe_block(a, t - a.n_tiles);
 }
 
 // hdr (int64): [n, bv, bv_f, order, np, pos0, cnt, pv, pv_f, pvalid, out_f,
-//               tile_sums, tile_offs, csum, part_total, part_pairs, total,
-//               pairs, n_blocks]
-// tile_sums / tile_offs hold ceil(n / 2048) entries, csum n + 1, the
-// partials n_blocks (at most 1056).
+//               n_tiles, n_probe, epoch, ctr, flag, agg, incl, part_total,
+//               part_pairs, csum, res]
+// n_tiles = ceil(n / SJ_TILE), n_probe in [1, SJ_MAX_BLOCKS]; ctr holds 3
+// words, flag / agg / incl n_tiles, the partials n_probe, csum n + 1;
+// ctr and flag zeroed when allocated, and no call with a later epoch has
+// run on them.
 extern "C" int shuffle_join_run(const i64* hdr, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   SjArgs a;
@@ -276,31 +389,28 @@ extern "C" int shuffle_join_run(const i64* hdr, void* stream) {
   a.pv_f = (int)hdr[8];
   a.pvalid = (const unsigned char*)hdr[9];
   a.out_f = (int)hdr[10];
-  a.tile_sums = (i64*)hdr[11];
-  a.tile_offs = (i64*)hdr[12];
-  a.csum = (i64*)hdr[13];
-  a.part_total = (i64*)hdr[14];
-  a.part_pairs = (i64*)hdr[15];
-  a.total = (i64*)hdr[16];
-  a.pairs = (i64*)hdr[17];
-  const int n_blocks = (int)hdr[18];
-  if (n_blocks < 1 || n_blocks > SJ_MAX_BLOCKS || (a.bv_f && !a.out_f) ||
+  a.n_tiles = hdr[11];
+  a.n_probe = hdr[12];
+  a.epoch = (u64)hdr[13];
+  a.ctr = (u64*)hdr[14];
+  a.flag = (u64*)hdr[15];
+  a.agg = (i64*)hdr[16];
+  a.incl = (i64*)hdr[17];
+  a.part_total = (i64*)hdr[18];
+  a.part_pairs = (i64*)hdr[19];
+  a.csum = (i64*)hdr[20];
+  a.res = (i64*)hdr[21];
+  if (a.n < 0 || a.np < 0 || a.n_tiles != (a.n + SJ_TILE - 1) / SJ_TILE ||
+      a.n_probe < 1 || a.n_probe > SJ_MAX_BLOCKS || a.epoch < 1 ||
+      a.epoch >= (1ULL << 62) || (a.bv_f && !a.out_f) ||
       (a.pv_f && !a.out_f))
     return (int)cudaErrorInvalidValue;
-  const i64 n_tiles = (a.n + SJ_TILE - 1) / SJ_TILE;
-  cudaError_t e;
-  if (n_tiles > 0) {
-    sj_tile_sums<<<(unsigned)n_tiles, TIDB_THREADS, 0, st>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const size_t smem = (size_t)SJ_TILE * 8;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sj_run, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  sj_scan_tiles<<<1, SJ_SCAN_THREADS, 0, st>>>(a, n_tiles);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (n_tiles > 0) {
-    sj_scan<<<(unsigned)n_tiles, TIDB_THREADS, 0, st>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-  sj_probe<<<(unsigned)n_blocks, TIDB_THREADS, 0, st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  sj_final<<<1, 32, 0, st>>>(a, n_blocks);
+  sj_run<<<(unsigned)(a.n_tiles + a.n_probe), SJ_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }

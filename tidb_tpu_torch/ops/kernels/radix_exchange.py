@@ -23,15 +23,21 @@ the rows' device.  The grid's destination-major layout ``[n_dest, n_sub,
 cap]`` is what a tiled ``all_to_all`` splits.
 
 Each launches ``csrc/radix_exchange.cu`` for CUDA tensors and runs its
-plain version for CPU tensors.  The plain versions emulate uint64 on
-int64 (torch has no ``>>`` or ``%`` on uint64): a logical right shift is
-``(x >> s) & ((1 << (64 - s)) - 1)``, and int64 multiplication wraps as
-uint64's does.  Bound on the card: memory (see the source note).
+plain version for CPU tensors.  :func:`partition` is one launch: tiles of
+:data:`TILE` rows ranked by bucket and placed by a look-back over the
+earlier tiles' counts, then fill blocks that zero only the buckets' empty
+tails (:func:`launch_plan`); its status words live in a workspace per
+device and stream that no call clears (each call takes a new epoch).
+The plain versions emulate uint64 on int64 (torch has no ``>>`` or ``%``
+on uint64): a logical right shift is ``(x >> s) & ((1 << (64 - s)) -
+1)``, and int64 multiplication wraps as uint64's does.  Bound on the
+card: memory (see the source note).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -40,11 +46,24 @@ import torch
 LAUNCHES = [0]
 
 #: csrc/radix_exchange.cu RX_MAX_BUCKETS (nb + 1, the parked bucket
-#: included), RX_MAX_COLS, RX_MAX_KEYS and RX_TILE
+#: included), RX_MAX_COLS, RX_MAX_KEYS, RX_THREADS, RX_WARPS, RX_TILE
+#: (the rows a tile block ranks) and RX_FILL_CHUNK (the slots of one
+#: bucket a fill item covers)
 MAX_BUCKETS = 1024
 MAX_COLS = 64
 MAX_KEYS = 8
-TILE = 1024
+THREADS = 256
+WARPS = THREADS // 32
+TILE = 2048
+FILL_CHUNK = 4096
+#: fill blocks of a call at most (two an SM)
+FILL_BLOCKS = 132 * 2
+#: the workspace's first status word (csrc RX_WS_STATUS): after the
+#: ticket, the ready word and the counts of MAX_BUCKETS buckets
+WS_STATUS = 2 + MAX_BUCKETS
+#: the kernel's tags are 2 epoch + 1 and 2 epoch + 2 in 32 bits: past this
+#: epoch the workspace is cleared and the epochs start again
+EPOCH_LIMIT = (1 << 31) - 2
 
 _M1 = 0xFF51AFD7ED558CCD - (1 << 64)
 _M2 = 0xC4CEB9FE1A85EC53 - (1 << 64)
@@ -129,14 +148,19 @@ def partition_plain(h, valid, n_dest, n_sub, cap, cols=()):
             "dropped": dropped}
 
 
-def _launch(name, hdr, dev):
+def _fn(name):
     from . import build
     fn = _FNS.get(name)
     if fn is None:
         fn = _FNS[name] = build.declare(name, 2)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    return fn
+
+
+def _launch(name, hdr, dev):
+    from . import build
     hdr = np.asarray(hdr, dtype=np.int64)
-    build.check(fn(hdr.ctypes.data, ctypes.c_void_p(stream)), name)
+    build.check(_fn(name)(hdr.ctypes.data,
+                          ctypes.c_void_p(build.raw_stream(dev))), name)
     LAUNCHES[0] += 1
 
 
@@ -188,6 +212,72 @@ def dest_hash(keys, mode="single", nulls=(), valid=None):
     return h, ok
 
 
+def smem_bytes(nb: int) -> int:
+    """A tile block's dynamic shared memory at `nb` buckets (csrc
+    rx_smem_bytes): per-warp bucket counts, the tile's bucket starts and
+    ends, the buckets' slot bases, the sorted permutation with its buckets,
+    and one column's tile window of 8-byte elements."""
+    glob = ((WARPS + 2) * nb * 4 + 15) & ~15
+    perm = (glob + nb * 8 + 15) & ~15
+    return perm + TILE * 4 + TILE * 8
+
+
+def launch_plan(m: int, nb: int, cap: int) -> dict:
+    """One partition call's launch: ``n_tiles`` tile blocks (at least one,
+    which writes the counts of an empty call), ``n_fill`` fill blocks over
+    the ``items`` (bucket, chunk of :data:`FILL_CHUNK` slots) and the
+    workspace's words, in ``launches`` launch."""
+    n_tiles = max(1, -(-m // TILE))
+    items = nb * -(-cap // FILL_CHUNK)
+    n_fill = min(items, FILL_BLOCKS)
+    return {"n_tiles": n_tiles, "n_fill": n_fill, "items": items,
+            "blocks": n_tiles + n_fill,
+            "ws_words": WS_STATUS + n_tiles * nb, "launches": 1}
+
+
+class _Workspace:
+    """The partition's workspace on one stream (:data:`WS_STATUS` words,
+    then the status words), zeroed once when allocated and grown to the
+    largest call.  Every call takes a new epoch, which its status and
+    ready words carry, so no launch clears them (the last ticket sets the
+    counter back to 0); the lock keeps epochs in stream order across
+    threads."""
+
+    __slots__ = ("words", "epoch")
+
+    def __init__(self):
+        self.words, self.epoch = None, 0
+
+    def take(self, n_words: int, dev) -> tuple:
+        """(workspace pointer, epoch) of the next call."""
+        if self.words is None or self.words.numel() < n_words:
+            size = n_words if self.words is None else max(
+                n_words, 2 * self.words.numel())
+            self.words = torch.zeros(size, dtype=torch.int64, device=dev)
+        if self.epoch >= EPOCH_LIMIT:
+            self.words.zero_()
+            self.epoch = 0
+        self.epoch += 1
+        return self.words.data_ptr(), self.epoch
+
+
+_WS: dict = {}
+_WS_LOCK = threading.Lock()
+
+
+def pack_header(m, n_dest, n_sub, cap, h_ptr, valid_ptr, plan, epoch, ws,
+                flags, rows, slot_valid, cols) -> np.ndarray:
+    """``radix_partition_run``'s header: [m, n_dest, n_sub, cap, h, valid,
+    n_tiles, n_fill, epoch, ws, flags, rows, slot_valid, n_cols, then per
+    column: src, dst, element size]; `cols` holds (src pointer, dst
+    pointer, element size) per column."""
+    hdr = [m, n_dest, n_sub, cap, h_ptr, valid_ptr, plan["n_tiles"],
+           plan["n_fill"], epoch, ws, flags, rows, slot_valid, len(cols)]
+    for src, dst, es in cols:
+        hdr += [src, dst, es]
+    return np.asarray(hdr, dtype=np.int64)
+
+
 def partition(h, valid, n_dest: int, n_sub: int, cap: int, cols=()):
     """The stable radix partition of the rows into the ``n_dest * n_sub *
     cap`` slot grid (see the module note).  h: int64 hash bits; valid:
@@ -223,22 +313,28 @@ def partition(h, valid, n_dest: int, n_sub: int, cap: int, cols=()):
     for c in cols:
         if c.element_size() not in (1, 2, 4, 8):
             raise TypeError(f"radix_exchange: column dtype {c.dtype}")
-    e = dict(device=dev)
-    n_tiles = (m + TILE - 1) // TILE
     size = nb * cap
-    hist = torch.empty(max(nb * n_tiles, 1), dtype=torch.int64, **e)
-    cnt = torch.empty(nb, dtype=torch.int64, **e)
-    flags = torch.zeros(2, dtype=torch.int64, **e)  # need, dropped
-    rows = torch.empty(size, dtype=torch.int64, **e)
-    slot_valid = torch.empty(size, dtype=torch.bool, **e)
-    outs = [torch.empty(size, dtype=c.dtype, **e) for c in cols]
-    hdr = [m, n_dest, n_sub, cap, h.data_ptr(),
-           0 if valid is None else valid.data_ptr(), n_tiles,
-           hist.data_ptr(), cnt.data_ptr(), flags.data_ptr(),
-           flags.data_ptr() + 8, rows.data_ptr(), slot_valid.data_ptr(),
-           len(cols)]
-    for c, o in zip(cols, outs):
-        hdr += [c.data_ptr(), o.data_ptr(), c.element_size()]
-    _launch("radix_partition_run", hdr, dev)
+    rows = torch.empty(size, dtype=torch.int64, device=dev)
+    slot_valid = torch.empty(size, dtype=torch.bool, device=dev)
+    outs = [torch.empty(size, dtype=c.dtype, device=dev) for c in cols]
+    flags = torch.empty(2, dtype=torch.int64, device=dev)  # need, dropped
+    plan = launch_plan(m, nb, cap)
+    from . import build
+    fn = _fn("radix_partition_run")
+    stream = build.raw_stream(dev)
+    with _WS_LOCK:
+        ws = _WS.get((dev, stream))
+        if ws is None:
+            ws = _WS[(dev, stream)] = _Workspace()
+        ptr, epoch = ws.take(plan["ws_words"], dev)
+        hdr = pack_header(
+            m, n_dest, n_sub, cap, h.data_ptr(),
+            0 if valid is None else valid.data_ptr(), plan, epoch, ptr,
+            flags.data_ptr(), rows.data_ptr(), slot_valid.data_ptr(),
+            [(c.data_ptr(), o.data_ptr(), c.element_size())
+             for c, o in zip(cols, outs)])
+        rc = fn(hdr.ctypes.data, ctypes.c_void_p(stream))
+    build.check(rc, "radix_partition_run")
+    LAUNCHES[0] += 1
     return {"rows": rows, "valid": slot_valid, "cols": outs,
             "need": flags[0], "dropped": flags[1]}

@@ -15,13 +15,19 @@ total is float64 (jnp's promotion); it differs from the reference's
 rtol 1e-9 / atol 1e-12.
 
 :func:`join_sum` launches ``csrc/shuffle_join.cu`` for CUDA tensors and
-runs :func:`join_sum_plain` for CPU tensors.  Bound on the card: memory
-(see the source note).
+runs :func:`join_sum_plain` for CPU tensors: one launch whose first
+blocks scan tiles of :data:`TILE` sorted positions by look-back and whose
+other blocks sum the probe rows once the scan is done
+(:func:`launch_plan`).  Its scratch (counters, status words, partials and
+``csum``) is one workspace per device and stream that no call clears
+(each call takes a new epoch; :func:`workspace_layout`).  Float totals
+repeat bit for bit.  Bound on the card: memory (see the source note).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -29,11 +35,84 @@ import torch
 #: launches of the CUDA kernel (chip_smoke.py reads it to prove the path)
 LAUNCHES = [0]
 
-#: csrc/shuffle_join.cu's tile of sorted positions and its block limit
-TILE = 2048
+#: csrc/shuffle_join.cu: SJ_TILE (the sorted positions a scan block
+#: takes), SJ_THREADS and SJ_MAX_BLOCKS (the probe blocks of a call at
+#: most)
+TILE = 4096
+THREADS = 256
 MAX_BLOCKS = 132 * 8
 
 _FN = [None]
+
+
+def launch_plan(n: int, np_: int) -> dict:
+    """One call's launch: ``n_tiles`` scan blocks over the `n` sorted
+    positions, then ``n_probe`` probe blocks over the `np_` probe rows
+    (one a :data:`THREADS` rows, at least one, at most
+    :data:`MAX_BLOCKS`: the grid-stride order, and so the float total,
+    depends on `np_` alone)."""
+    n_tiles = -(-n // TILE)
+    n_probe = max(1, min(MAX_BLOCKS, -(-np_ // THREADS)))
+    return {"n_tiles": n_tiles, "n_probe": n_probe,
+            "blocks": n_tiles + n_probe, "launches": 1}
+
+
+def workspace_layout(n: int) -> dict:
+    """The workspace for up to `n` sorted positions, in int64 words: three
+    counters (ticket, tiles done, probe blocks done), per tile a flag, an
+    aggregate and an inclusive prefix, the probe blocks' partial totals
+    and pairs, and ``csum`` (n + 1)."""
+    tiles = -(-n // TILE)
+    lay = {"ctr": 0, "flag": 4, "agg": 4 + tiles, "incl": 4 + 2 * tiles,
+           "part_total": 4 + 3 * tiles,
+           "part_pairs": 4 + 3 * tiles + MAX_BLOCKS,
+           "csum": 4 + 3 * tiles + 2 * MAX_BLOCKS}
+    lay["words"] = lay["csum"] + n + 1
+    return lay
+
+
+class _Workspace:
+    """The kernel's workspace on one stream, zeroed once when allocated
+    and grown to the largest call.  Every call takes a new epoch, which
+    its flags carry, so no launch clears them (the kernel sets its
+    counters back to 0); the lock keeps epochs in stream order across
+    threads."""
+
+    __slots__ = ("words", "n", "epoch")
+
+    def __init__(self):
+        self.words, self.n, self.epoch = None, -1, 0
+
+    def take(self, n: int, dev) -> tuple:
+        """(word pointers by :func:`workspace_layout`'s names, epoch) of
+        the next call, for `n` sorted positions."""
+        if n > self.n:
+            self.n = max(n, 2 * self.n)
+            self.words = torch.zeros(workspace_layout(self.n)["words"],
+                                     dtype=torch.int64, device=dev)
+        self.epoch += 1
+        base = self.words.data_ptr()
+        ptrs = {k: base + 8 * off
+                for k, off in workspace_layout(self.n).items()
+                if k != "words"}
+        return ptrs, self.epoch
+
+
+_WS: dict = {}
+_WS_LOCK = threading.Lock()
+
+
+def pack_header(n, bv, bv_f, order, np_, pos0, cnt, pv, pv_f, pvalid,
+                out_f, plan, epoch, ws, res) -> np.ndarray:
+    """``shuffle_join_run``'s header (pointers as ints, 0 for None):
+    [n, bv, bv_f, order, np, pos0, cnt, pv, pv_f, pvalid, out_f, n_tiles,
+    n_probe, epoch, ctr, flag, agg, incl, part_total, part_pairs, csum,
+    res]; `ws` maps :func:`workspace_layout`'s names to pointers."""
+    return np.asarray(
+        [n, bv, bv_f, order, np_, pos0, cnt, pv, pv_f, pvalid, out_f,
+         plan["n_tiles"], plan["n_probe"], epoch, ws["ctr"], ws["flag"],
+         ws["agg"], ws["incl"], ws["part_total"], ws["part_pairs"],
+         ws["csum"], res], dtype=np.int64)
 
 
 def _out_dtype(bv, pv):
@@ -92,28 +171,25 @@ def join_sum(bv, order, pos0, cnt, pv, pvalid=None):
     if order is not None and bv.shape[0] < n:
         raise ValueError("shuffle_join: order longer than the build values")
     out = _out_dtype(bv, pv)
-    e = dict(device=dev)
-    n_tiles = (n + TILE - 1) // TILE
-    n_blocks = max(1, min(MAX_BLOCKS, (np_ + 255) // 256))
-    tiles = torch.empty(max(2 * n_tiles, 1), dtype=torch.int64, **e)
-    csum = torch.empty(n + 1, dtype=torch.int64, **e)
-    parts = torch.empty(2 * n_blocks, dtype=torch.int64, **e)
-    res = torch.empty(2, dtype=torch.int64, **e)
-    hdr = [n, bv.data_ptr(), int(bv.is_floating_point()),
-           0 if order is None else order.data_ptr(), np_, pos0.data_ptr(),
-           cnt.data_ptr(), pv.data_ptr(), int(pv.is_floating_point()),
-           0 if pvalid is None else pvalid.data_ptr(),
-           int(out == torch.float64), tiles.data_ptr(),
-           tiles.data_ptr() + 8 * n_tiles, csum.data_ptr(),
-           parts.data_ptr(), parts.data_ptr() + 8 * n_blocks,
-           res.data_ptr(), res.data_ptr() + 8, n_blocks]
+    res = torch.empty(2, dtype=torch.int64, device=dev)
+    plan = launch_plan(n, np_)
     from . import build
     if _FN[0] is None:
         _FN[0] = build.declare("shuffle_join_run", 2)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    hdr = np.asarray(hdr, dtype=np.int64)
-    build.check(_FN[0](hdr.ctypes.data, ctypes.c_void_p(stream)),
-                "shuffle_join_run")
+    stream = build.raw_stream(dev)
+    with _WS_LOCK:
+        ws = _WS.get((dev, stream))
+        if ws is None:
+            ws = _WS[(dev, stream)] = _Workspace()
+        ptrs, epoch = ws.take(n, dev)
+        hdr = pack_header(
+            n, bv.data_ptr(), int(bv.is_floating_point()),
+            0 if order is None else order.data_ptr(), np_, pos0.data_ptr(),
+            cnt.data_ptr(), pv.data_ptr(), int(pv.is_floating_point()),
+            0 if pvalid is None else pvalid.data_ptr(),
+            int(out == torch.float64), plan, epoch, ptrs, res.data_ptr())
+        rc = _FN[0](hdr.ctypes.data, ctypes.c_void_p(stream))
+    build.check(rc, "shuffle_join_run")
     LAUNCHES[0] += 1
     total = (res[:1].view(torch.float64)[0] if out == torch.float64
              else res[0])
