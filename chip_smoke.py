@@ -117,6 +117,29 @@ Phases, each fatal on failure:
    partition sizes, the rows equal to the host engine's; ``[window]``
    lines with the device time, the K2 / K4 / K10 and device → host copy
    times and the host assembly;
+6b. ``[server]`` — the port's MySQL server (``server.MySQLServer``) and
+   status server in this process over the same domain and SF1 tables,
+   and ``lineitem_p``: lineitem's rows bulk-installed partition by
+   partition (``carry.install_bulk_numpy``), RANGE on YEAR(l_shipdate),
+   one partition a year 1992-1998 and one MAXVALUE.  A protocol-41
+   client on the port's ``server/packet.py`` (``WireClient``) sets
+   ``tidb_executor_engine = 'tpu'``; EXPLAIN ANALYZE of Q1 and Q3 over
+   the wire must show ``engine:tpu``; then, every launch counter set to
+   0, Q1, Q3, Q18 and W2 in the text protocol and Q1 prepared with its
+   ship-date bound a binary DATE parameter, each launching its kernels
+   (K2 and K1; Q3 and Q18 also K4, K5a, K5b; W2 K2, K4, K10) with rows
+   equal to phase 4's host rows (W2 to phase 6's device rows): every
+   cell the same text but DOUBLE / FLOAT, decoded within rtol 1e-9 /
+   atol 1e-12; two connections running Q1 and Q3 at once, three times
+   each; Q1, Q6 and a Q6 pruned to ``p1994`` (EXPLAIN) over
+   ``lineitem_p`` on ``engine:tpu`` with Q1's and Q6's rows; ``/status``
+   over HTTP parses, with every key of the page, device-resident bytes
+   above 0, ``device_hybrid_join`` and ``device_compiler``; last
+   ``python -m tidb_tpu_torch.server`` in a process of its own on the
+   card answers SELECT version() and a device aggregate over a table
+   made with SQL there (``engine:tpu``), and exits 0 on SIGTERM.  One
+   ``[server]`` line per query: ms over the wire, the same query's
+   in-process ms (phase 4 or 6) and its launches;
 7. ``[paged-sf1]`` — the same SF1 ``lineitem`` and ``orders`` a second
    time, as paged (memmap) tables in a temporary directory removed at
    exit (``carry.install_tpch``'s paged option, db ``tpch_paged``, the
@@ -552,7 +575,9 @@ def phase_sql_setup(args, captured, joins):
             "l_quantity": tables["lineitem"][0]["l_quantity"],
             "o_totalprice": tables["orders"][0]["o_totalprice"],
             # W2's partition sizes, for its check
-            "supp_counts": np.bincount(tables["lineitem"][0]["l_suppkey"])}
+            "supp_counts": np.bincount(tables["lineitem"][0]["l_suppkey"]),
+            # the [server] phase's lineitem_p
+            "lineitem": tables["lineitem"]}
     del tables
     s.execute("set @@tidb_executor_engine = 'tpu'")
 
@@ -1423,7 +1448,7 @@ def phase_main_path(dom, s, n_rows, report):
 
     for c in counters.values():
         c[0] = 0
-    dev_res = {}
+    dev_res, dev_ms = {}, {}
     loadg = 0
     device_join.build_join_index = timed_build
     join_expand.count, pdev.device_join_match = counted_count, counted_match
@@ -1431,6 +1456,7 @@ def phase_main_path(dom, s, n_rows, report):
         for name, sql in QUERIES:
             dev_res[name] = run_counted(s, name, sql, counters, need,
                                         n_rows, index_builds)
+            dev_ms[name] = dev_res[name][2]
             if name in JOIN_FRAGMENTS:
                 loadg += dev_res[name][1]["expr_vm"]
     finally:
@@ -1468,11 +1494,12 @@ def phase_main_path(dom, s, n_rows, report):
         log(f"[main] {name}: {len(host.rows)} rows equal the host "
             f"engine's (host {dt:.3f}s); first {host.rows[:2]}")
         host_res[name] = host
-    return host_res
+    return host_res, dev_ms
 
 
 def run_counted(s, name, sql, counters, need, n_rows, index_builds):
-    """One main-path query on the device engine: (result, launches)."""
+    """One main-path query on the device engine: (result, launches,
+    milliseconds)."""
     import torch
     before = {k: c[0] for k, c in counters.items()}
     del index_builds[:]
@@ -1493,7 +1520,7 @@ def run_counted(s, name, sql, counters, need, n_rows, index_builds):
                  f"{len(index_builds)} calls")
     log(f"[main] {name}: {dt * 1e3:.3f} ms on the device engine, "
         f"{n_rows / dt:,.0f} lineitem rows/s, launches {moved}{note}")
-    return res, moved
+    return res, moved, dt * 1e3
 
 
 # -- the MPP mesh path: K11/K12 on a local mesh of 8 shards -------------------
@@ -2689,6 +2716,7 @@ def phase_window(s, n_rows, supp_counts, report):
             f"engine's, engine:tpu; device {dev_ms[name]:.3f} ms "
             f"({window_split(assemble[name], stages[name], dev_ms[name])}"
             f"); host engine {host_s:.3f} s; first {host.rows[:1]}")
+    return dev_res["w2"], dev_ms["w2"]
 
 
 def window_sf10(s, n_rows, supp_counts, report):
@@ -2743,6 +2771,476 @@ def window_sf10(s, n_rows, supp_counts, report):
         f"({split}); count, sum(row_number) and max(count) equal the "
         "generated partition sizes; launches "
         f"{dict((k, c[0]) for k, c in counters.items())}")
+
+
+# -- the MySQL wire server: the serving path over TCP -------------------------
+
+#: every key of the status page's /status object
+STATUS_KEYS = ("version", "connections", "kv_engine", "device_abandoned_calls",
+               "device_supervisor", "device_residency", "device_scheduler",
+               "device_mpp", "device_compiler", "device_breakers",
+               "device_tracing", "device_hybrid_join", "device_fabric",
+               "storage_wal")
+
+#: Q1 with its ship-date bound as a prepared statement's parameter
+Q1_PREPARED = Q1.replace("'1998-09-02'", "?")
+
+#: Q6 over lineitem_p with its upper bound a DATE literal: the planner
+#: prunes the scan to the partition of 1994 (EXPLAIN: partition:p1994)
+Q6_PRUNED = Q6.replace("date_add('1994-01-01', interval 1 year)",
+                       "'1995-01-01'")
+
+#: MySQL column type codes the wire compares within rtol 1e-9 / atol 1e-12
+WIRE_FLOAT_TYPES = (0x04, 0x05)
+
+
+class WireClient:
+    """A minimal MySQL protocol-41 client on the port's packet framing
+    (``tidb_tpu_torch/server/packet.py``): a mysql_native_password
+    handshake, COM_QUERY with text rows, and COM_STMT_PREPARE /
+    COM_STMT_EXECUTE with binary parameters and binary rows.  Rows come
+    back as display strings (None for NULL), with each column's type
+    code."""
+
+    def __init__(self, port, user="root", password="", db=""):
+        import socket
+        import struct
+        from tidb_tpu_torch.server import protocol as P
+        from tidb_tpu_torch.server.packet import PacketIO, read_nul_str
+        self.P, self.struct = P, struct
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=600)
+        self.io = PacketIO(self.sock)
+        pkt = self.io.read_packet()
+        if pkt[0] != 10:
+            fail(f"wire: handshake protocol {pkt[0]}")
+        _ver, pos = read_nul_str(pkt, 1)
+        salt = pkt[pos + 4:pos + 12]
+        pos += 4 + 9 + 2 + 1 + 2 + 2
+        salt_len = pkt[pos]
+        pos += 1 + 10
+        salt += pkt[pos:pos + max(13, salt_len - 8) - 1]
+        caps = (P.CLIENT_PROTOCOL_41 | P.CLIENT_SECURE_CONNECTION
+                | P.CLIENT_PLUGIN_AUTH | P.CLIENT_MULTI_RESULTS
+                | (P.CLIENT_CONNECT_WITH_DB if db else 0))
+        auth = P.native_password_hash(password.encode(), salt[:20])
+        out = (struct.pack("<II", caps, 1 << 24) + bytes([255])
+               + b"\x00" * 23 + user.encode() + b"\x00"
+               + bytes([len(auth)]) + auth)
+        if db:
+            out += db.encode() + b"\x00"
+        self.io.write_packet(out + b"mysql_native_password\x00")
+        resp = self.io.read_packet()
+        if resp[0] != 0:
+            fail(f"wire: authentication refused: {resp[3:]!r}")
+
+    def query(self, sql):
+        """('ok', affected) or ('rows', (names, types, rows)); an error
+        packet fails the run."""
+        self.io.reset_seq()
+        self.io.write_packet(bytes([self.P.COM_QUERY]) + sql.encode())
+        return self._result(sql, binary=False)
+
+    def rows(self, sql):
+        kind, res = self.query(sql)
+        if kind != "rows":
+            fail(f"wire: no result set from {sql[:60]!r}")
+        return res
+
+    def prepare_execute(self, sql, args):
+        """Prepare `sql`, execute it once with `args` (int, str, or
+        datetime.date as a binary DATE), close it."""
+        import datetime
+        struct, P = self.struct, self.P
+        self.io.reset_seq()
+        self.io.write_packet(bytes([P.COM_STMT_PREPARE]) + sql.encode())
+        resp = self.io.read_packet()
+        if resp[0] != 0:
+            fail(f"wire: prepare refused: {resp[3:]!r}")
+        sid, n_cols, n_params = struct.unpack_from("<IHH", resp, 1)
+        for _ in range(n_params + (1 if n_params else 0)
+                       + n_cols + (1 if n_cols else 0)):
+            self.io.read_packet()
+        out = (bytes([P.COM_STMT_EXECUTE]) + struct.pack("<I", sid)
+               + b"\x00" + struct.pack("<I", 1))
+        if args:
+            out += bytes((len(args) + 7) // 8) + b"\x01"
+            types, body = b"", b""
+            for a in args:
+                if isinstance(a, datetime.date):
+                    types += bytes([0x0A, 0])
+                    body += bytes([4]) + struct.pack("<HBB", a.year,
+                                                     a.month, a.day)
+                elif isinstance(a, int):
+                    types += bytes([0x08, 0])
+                    body += struct.pack("<q", a)
+                else:
+                    from tidb_tpu_torch.server.packet import lenenc_str
+                    types += bytes([0xFE, 0])
+                    body += lenenc_str(str(a).encode())
+            out += types + body
+        self.io.reset_seq()
+        self.io.write_packet(out)
+        res = self._result(sql, binary=True)
+        self.io.reset_seq()
+        self.io.write_packet(bytes([P.COM_STMT_CLOSE])
+                             + struct.pack("<I", sid))
+        return res
+
+    def _result(self, sql, binary):
+        from tidb_tpu_torch.server.packet import (read_lenenc_int,
+                                                  read_lenenc_str)
+        first = self.io.read_packet()
+        if first[0] == 0x00:
+            return "ok", read_lenenc_int(first, 1)[0]
+        if first[0] == 0xFF:
+            code = self.struct.unpack_from("<H", first, 1)[0]
+            fail(f"wire: error {code} {first[9:].decode()!r} from "
+                 f"{sql[:80]!r}")
+        ncols = read_lenenc_int(first, 0)[0]
+        names, types = [], []
+        for _ in range(ncols):
+            pkt, pos, vals = self.io.read_packet(), 0, []
+            for _f in range(6):
+                v, pos = read_lenenc_str(pkt, pos)
+                vals.append(v)
+            names.append(vals[4].decode())
+            types.append(pkt[pos + 1 + 2 + 4])
+        if self.io.read_packet()[0] != 0xFE:
+            fail("wire: no EOF after the column definitions")
+        rows = []
+        while True:
+            pkt = self.io.read_packet()
+            if pkt[0] == 0xFE and len(pkt) < 9:
+                break
+            rows.append(self._binary_row(pkt, types) if binary
+                        else self._text_row(pkt, ncols))
+        return "rows", (names, types, rows)
+
+    @staticmethod
+    def _text_row(pkt, ncols):
+        from tidb_tpu_torch.server.packet import read_lenenc_str
+        row, pos = [], 0
+        for _ in range(ncols):
+            if pkt[pos] == 0xFB:
+                row.append(None)
+                pos += 1
+            else:
+                v, pos = read_lenenc_str(pkt, pos)
+                row.append(v.decode())
+        return tuple(row)
+
+    def _binary_row(self, pkt, types):
+        """A binary row as display strings (integers, doubles by repr,
+        dates, and every length-encoded type as its text)."""
+        from tidb_tpu_torch.server.packet import read_lenenc_str
+        struct = self.struct
+        nb = (len(types) + 9) // 8
+        bitmap, pos, row = pkt[1:1 + nb], 1 + nb, []
+        for i, tp in enumerate(types):
+            if bitmap[(i + 2) // 8] & (1 << ((i + 2) % 8)):
+                row.append(None)
+                continue
+            fixed = {0x01: "<b", 0x02: "<h", 0x03: "<i", 0x08: "<q",
+                     0x04: "<f", 0x05: "<d"}.get(tp)
+            if fixed is not None:
+                v = struct.unpack_from(fixed, pkt, pos)[0]
+                pos += struct.calcsize(fixed)
+                row.append(repr(v) if tp in WIRE_FLOAT_TYPES else str(v))
+            elif tp in (0x07, 0x0A, 0x0C):
+                ln = pkt[pos]
+                y, mo, d = struct.unpack_from("<HBB", pkt, pos + 1)
+                row.append(f"{y:04d}-{mo:02d}-{d:02d}" if ln else
+                           "0000-00-00")
+                pos += 1 + ln
+            else:
+                v, pos = read_lenenc_str(pkt, pos)
+                row.append(v.decode())
+        return tuple(row)
+
+    def close(self):
+        try:
+            self.io.reset_seq()
+            self.io.write_packet(bytes([self.P.COM_QUIT]))
+        finally:
+            self.sock.close()
+
+
+def wire_equal(wire, res):
+    """Rows over the wire equal a session ``Result``'s: the same column
+    types, every cell the same text but in DOUBLE and FLOAT columns,
+    which decode and compare within rtol 1e-9 / atol 1e-12."""
+    import numpy as np
+    _names, types, rows = wire
+    if list(types) != [f.tp & 0xFF for f in res.ftypes]:
+        return False
+    if len(rows) != len(res.rows):
+        return False
+    for rw, rr in zip(rows, res.rows):
+        for vw, vr, tp in zip(rw, rr, types):
+            vr = vr.decode() if isinstance(vr, bytes) else vr
+            if vw == vr:
+                continue
+            if (tp not in WIRE_FLOAT_TYPES or vw is None or vr is None
+                    or not np.isclose(float(vw), float(vr), rtol=1e-9,
+                                      atol=1e-12)):
+                return False
+    return True
+
+
+def server_counters():
+    from tidb_tpu_torch.ops.kernels import (expr_vm, groupby_agg,
+                                            join_expand, join_probe,
+                                            sort_topk, window_scan)
+    return {"expr_vm": expr_vm.LAUNCHES, "groupby_agg": groupby_agg.LAUNCHES,
+            "sort_topk": sort_topk.LAUNCHES,
+            "join_probe": join_probe.LAUNCHES,
+            "join_expand": join_expand.LAUNCHES,
+            "window_scan": window_scan.LAUNCHES}
+
+
+#: kernels each wire query must launch
+_AGG = ["expr_vm", "groupby_agg"]
+_JOIN = _AGG + ["sort_topk", "join_probe", "join_expand"]
+SERVER_NEED = {"q1": _AGG, "q1_prepared": _AGG, "q3": _JOIN, "q18": _JOIN,
+               "w2": ["expr_vm", "sort_topk", "window_scan"],
+               "q1_p": _AGG, "q6_p": _AGG, "q6_pruned": _AGG}
+
+
+def wire_run(c, name, sql, counters, want, ms_in, args=None):
+    """One wire query: its rows against `want`, its kernels launched; one
+    ``[server]`` line.  Returns the launches it made."""
+    import datetime
+    before = {k: v[0] for k, v in counters.items()}
+    t0 = time.perf_counter()
+    if args is None:
+        kind, res = c.query(sql)
+    else:
+        kind, res = c.prepare_execute(sql, args)
+    dt = (time.perf_counter() - t0) * 1e3
+    moved = {k: v[0] - before[k] for k, v in counters.items()}
+    if kind != "rows":
+        fail(f"[server] {name}: no result set")
+    if not wire_equal(res, want):
+        fail(f"[server] {name}: wire rows differ from the in-process "
+             f"rows:\nwire {res[2][:3]}\nwant {want.rows[:3]}")
+    for k in SERVER_NEED[name]:
+        if moved[k] <= 0:
+            fail(f"[server] {name}: kernel {k} was not launched over the "
+                 "wire (degraded to host?)")
+    binary = " (binary protocol, DATE parameter)" if args and isinstance(
+        args[0], datetime.date) else ""
+    log(f"[server] {name}{binary}: {len(res[2])} rows equal; wire "
+        f"{dt:.3f} ms, in-process {ms_in[0]:.3f} ms ({ms_in[1]}); "
+        f"launches {moved}")
+    return moved
+
+
+def wire_engine_tpu(c, name, sql, op="HashAgg"):
+    _n, _t, rows = c.rows("explain analyze " + sql)
+    lines = [r for r in rows if op in str(r[0])]
+    if not lines or not all(any("engine:tpu" in str(x) for x in r)
+                            for r in lines):
+        for r in rows:
+            log(f"    {r}")
+        fail(f"[server] {name}: EXPLAIN ANALYZE over the wire shows a "
+             f"{op} without engine:tpu")
+    return rows
+
+
+def phase_server(dom, s, host_res, main_ms, w2, lineitem, report):
+    """``[server]``: the port's MySQL server and status server in this
+    process over the SF1 tables; the queries over TCP on the device
+    engine, their rows against phase 4's and phase 6's, their launches;
+    lineitem_p; the status page; the process entry."""
+    import datetime
+    import threading
+    import urllib.request
+    from tidb_tpu_torch import carry
+    from tidb_tpu_torch.server import MySQLServer
+    from tidb_tpu_torch.server.http_status import StatusServer
+    w2_res, w2_ms = w2
+    # lineitem_p: one partition a ship year, each bulk-installed on its
+    # partition's physical view
+    s.execute("use tpch")
+    years = ", ".join(f"partition p{y} values less than ({y + 1})"
+                      for y in range(1992, 1999))
+    s.execute(carry.LINEITEM_DDL.replace("create table lineitem",
+                                         "create table lineitem_p")
+              + f" partition by range (year(l_shipdate)) ({years}, "
+                "partition pmax values less than maxvalue)")
+    t0 = time.perf_counter()
+    views = carry.install_bulk_numpy(dom, "tpch", "lineitem_p", *lineitem)
+    sizes = [v.nrows for v in views]
+    if sum(sizes) != lineitem[1]:
+        fail(f"[server] lineitem_p holds {sum(sizes)} rows, not "
+             f"{lineitem[1]}")
+    log(f"[server] lineitem_p: {len(sizes)} partitions of {sizes} rows, "
+        f"installed in {time.perf_counter() - t0:.1f}s")
+    counters = server_counters()
+    srv = MySQLServer(dom, port=0).start()
+    status = StatusServer(dom, srv, port=0).start()
+    clients = []
+    try:
+        c = WireClient(srv.port, db="tpch")
+        clients.append(c)
+        if c.rows("select version()")[2] != [("8.0.11-tpu-htap",)]:
+            fail("[server] select version() over the wire")
+        c.query("set tidb_executor_engine = 'tpu'")
+        for name in ("q1", "q3"):
+            wire_engine_tpu(c, name, dict(QUERIES)[name])
+        for k in counters.values():
+            k[0] = 0
+        queries = [("q1", Q1, host_res["q1"], main_ms["q1"]),
+                   ("q3", Q3, host_res["q3"], main_ms["q3"]),
+                   ("q18", Q18, host_res["q18"], main_ms["q18"]),
+                   ("w2", W2, w2_res, w2_ms)]
+        for name, sql, want, ms_in in queries:
+            wire_run(c, name, sql, counters, want,
+                     (ms_in, f"phase {6 if name == 'w2' else 4}"))
+        wire_run(c, "q1_prepared", Q1_PREPARED, counters, host_res["q1"],
+                 (main_ms["q1"], "phase 4, text"),
+                 args=[datetime.date(1998, 9, 2)])
+        # two connections at once: Q1 on one, Q3 on the other, 3 rounds
+        pair = [WireClient(srv.port, db="tpch") for _ in range(2)]
+        clients += pair
+        for p in pair:
+            p.query("set tidb_executor_engine = 'tpu'")
+        errors, times = [], {}
+
+        def run(cl, name, sql):
+            try:
+                t = time.perf_counter()
+                for _ in range(3):
+                    got = cl.rows(sql)
+                    if not wire_equal(got, host_res[name]):
+                        errors.append(f"{name}: rows differ")
+                times[name] = (time.perf_counter() - t) * 1e3 / 3
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(f"{name}: {type(e).__name__}: {e}")
+        before = {k: v[0] for k, v in counters.items()}
+        threads = [threading.Thread(target=run, args=(cl, n, dict(QUERIES)[n]))
+                   for cl, n in zip(pair, ("q1", "q3"))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if errors or any(t.is_alive() for t in threads):
+            fail(f"[server] two connections at once: {errors or 'hung'}")
+        moved = {k: v[0] - before[k] for k, v in counters.items()}
+        for k in _JOIN:
+            if moved[k] <= 0:
+                fail(f"[server] two connections at once: kernel {k} was "
+                     "not launched")
+        log(f"[server] two connections at once, Q1 and Q3 3 times each: "
+            f"rows equal; wire {times['q1']:.3f} / {times['q3']:.3f} ms a "
+            f"query; launches {moved}")
+        # lineitem_p on the device engine, against lineitem's rows
+        q1_p = Q1.replace("from lineitem", "from lineitem_p")
+        q6_p = Q6.replace("from lineitem", "from lineitem_p")
+        q6_pruned = Q6_PRUNED.replace("from lineitem", "from lineitem_p")
+        plan = c.rows("explain " + q6_pruned)[2]
+        scan = [r for r in plan if "TableScan" in str(r[0])]
+        if not scan or "partition:p1994" not in " ".join(map(str, scan[0])):
+            fail(f"[server] q6_pruned: the scan is not pruned to p1994: "
+                 f"{scan}")
+        for name, sql, want in (("q1_p", q1_p, "q1"), ("q6_p", q6_p, "q6"),
+                                ("q6_pruned", q6_pruned, "q6")):
+            wire_engine_tpu(c, name, sql)
+            wire_run(c, name, sql, counters, host_res[want],
+                     (main_ms[want], "phase 4, over lineitem"))
+        log(f"[server] q6_pruned scans {scan[0][-1] if scan else ''}")
+        for k, v in counters.items():
+            report[k]["launches_server"] = v[0]
+        log(f"[server] launches over the wire {dict((k, v[0]) for k, v in counters.items())}")
+        # the status page
+        with urllib.request.urlopen(f"http://127.0.0.1:{status.port}/status",
+                                    timeout=60) as r:
+            st = json.loads(r.read().decode())
+        missing = [k for k in STATUS_KEYS if k not in st]
+        if missing:
+            fail(f"[server] /status lacks {missing}")
+        cached = st["device_residency"]["hbm_bytes_cached"]
+        if cached <= 0:
+            fail("[server] /status reports no device-resident bytes")
+        log(f"[server] /status: {len(st)} keys, hbm_bytes_cached {cached}, "
+            f"device_hybrid_join {st['device_hybrid_join']}, "
+            f"device_compiler {st['device_compiler']}")
+    finally:
+        for cl in clients:
+            try:
+                cl.close()
+            except OSError:
+                pass
+        status.shutdown()
+        srv.shutdown()
+    server_process()
+
+
+def server_process():
+    """``python -m tidb_tpu_torch.server`` in a process of its own on the
+    card: it answers SELECT version() and a device aggregate over a table
+    made with SQL there, under engine:tpu, and exits 0 on SIGTERM."""
+    import signal
+    import socket
+    import tempfile
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    err = tempfile.TemporaryFile()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tidb_tpu_torch.server", "--port", str(port),
+         "--status-port", "-1"], cwd=HERE, stdout=subprocess.DEVNULL,
+        stderr=err)
+    try:
+        c = None
+        while c is None:
+            if proc.poll() is not None:
+                err.seek(0)
+                fail(f"[server] the server process exited "
+                     f"{proc.returncode}: {err.read().decode()[-2000:]}")
+            if time.perf_counter() - t0 > 240:
+                fail("[server] the server process did not listen in 240 s")
+            try:
+                c = WireClient(port)
+            except OSError:
+                time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        try:
+            version = c.rows("select version()")[2]
+            c.query("create database srv")
+            c.query("use srv")
+            c.query("create table t (g int, v bigint)")
+            c.query("insert into t values " + ",".join(
+                f"({i % 7}, {i * 3 - 500})" for i in range(2000)))
+            c.query("set tidb_executor_engine = 'tpu'")
+            q = "select g, sum(v), count(*) from t group by g order by g"
+            wire_engine_tpu(c, "process entry", q)
+            got = c.rows(q)[2]
+        finally:
+            c.close()
+        want = [(str(g), str(sum(i * 3 - 500 for i in range(2000)
+                                 if i % 7 == g)),
+                 str(sum(1 for i in range(2000) if i % 7 == g)))
+                for g in range(7)]
+        if version != [("8.0.11-tpu-htap",)] or got != want:
+            fail(f"[server] the server process answered {version} and "
+                 f"{got[:3]}, not {want[:3]}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            err.seek(0)
+            fail(f"[server] the server process exited {rc} on SIGTERM: "
+                 f"{err.read().decode()[-2000:]}")
+        log(f"[server] python -m tidb_tpu_torch.server: listening after "
+            f"{t_up:.1f}s, SELECT version() and a device aggregate under "
+            "engine:tpu answered, exit 0 on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
 
 
 # -- the out-of-core path: paged tables, streamed and paged queries ----------
@@ -3750,19 +4248,23 @@ def main(argv=None) -> int:
         phase_kernels(args, captured, report)
         phase_join_kernels(args, joins, keys, report)
         supp_counts = keys["supp_counts"]
+        lineitem = keys["lineitem"]
         mpp_keys = {k: keys[k] for k in ("l_orderkey", "o_orderkey",
                                          "l_quantity", "o_totalprice")}
         captured.clear()
         joins.clear()
         del keys
         phase_done("kernels")
-        host_res = phase_main_path(dom, s, n_rows, report)
+        host_res, main_ms = phase_main_path(dom, s, n_rows, report)
         phase_done("main path")
         phase_mpp(s, dom, host_res, mpp_keys, args.seed, report)
         del mpp_keys
         phase_done("mpp")
-        phase_window(s, n_rows, supp_counts, report)
+        w2 = phase_window(s, n_rows, supp_counts, report)
         phase_done("window")
+        phase_server(dom, s, host_res, main_ms, w2, lineitem, report)
+        del lineitem
+        phase_done("server")
         rate = pinned_h2d_rate()
         log(f"[h2d] pinned host -> device copy of 256 MiB: "
             f"{rate / 1e9:.3f} GB/s")
@@ -3825,7 +4327,9 @@ def main(argv=None) -> int:
              "ms_hybrid", "plain_ms_hybrid", "bound_ms_hybrid",
              "launches_per_call", "copies_per_call",
              # kernels A and B at the [exchange-split] shapes
-             "ms_split", "bound_ms_split")
+             "ms_split", "bound_ms_split",
+             # the [server] path's launches (counters at 0 before it)
+             "launches_server")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report.values()]}))

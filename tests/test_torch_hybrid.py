@@ -460,6 +460,62 @@ class TestSpillSet:
             s.close()
 
 
+# -- the gauges the status page reads ------------------------------------------
+
+_GAUGES = ("hj_partitions", "hj_spilled_partitions", "hj_spill_bytes",
+           "hj_coproc_host_rows")
+
+
+class TestStatusGauges:
+    """``hybrid_join.snapshot`` / ``report_gauges`` and
+    ``compile_service.snapshot``, which the status page's
+    ``device_hybrid_join`` / ``device_compiler`` and /metrics read."""
+
+    def test_snapshot_keys_equal_reference(self):
+        from tidb_tpu.executor import compile_service as rcs
+        from tidb_tpu_torch.executor import compile_service as pcs
+        assert sorted(phj.snapshot()) == sorted(rhj.snapshot())
+        assert sorted(pcs.snapshot()) == sorted(rcs.snapshot())
+        # a synchronous service: no queue, no workers, no background
+        # build
+        snap = pcs.snapshot()
+        assert pcs.queue_depth() == snap["compile_queue_depth"] == 0
+        assert snap["workers"] == snap["bg_submitted"] == 0
+        assert pcs.report_gauges()["compile_queue_depth"] == 0
+
+    def test_counters_move_on_a_hybrid_run(self, wide_kits):
+        before = phj.snapshot()
+        _rows, ran = _both(wide_kits, WIDESQL, 120_000)
+        assert ran == 1
+        after = phj.snapshot()
+        assert after["hj_runs"] == before["hj_runs"] + 1
+        assert after["hj_partitions"] > after["hj_spilled_partitions"] > 0
+        assert after["hj_spill_bytes"] > 0
+        assert after["hj_coproc_host_rows"] > 0
+        assert after["spill_open_sets"] == after["spill_open_bytes"] == 0
+        gauges = phj.report_gauges()
+        assert gauges == {k: after[k] for k in _GAUGES}
+        ref = rhj.report_gauges()
+        assert sorted(ref) == sorted(gauges)
+        assert [gauges[k] for k in _GAUGES[:2]] == [ref[k]
+                                                     for k in _GAUGES[:2]]
+
+    def test_report_gauges_empty_before_any_hybrid_run(self):
+        """A fresh process: the gauges appear only once the path ran."""
+        import subprocess
+        import sys
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "from tidb_tpu_torch.executor import hybrid_join as h, "
+             "compile_service as c; print(h.report_gauges(), "
+             "h.snapshot()['hj_runs'], c.report_gauges())"],
+            capture_output=True, text=True, timeout=120,
+            cwd=__file__.rsplit("/tests/", 1)[0])
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.split() == ["{}", "0", "{'compile_queue_depth':",
+                                       "0}"]
+
+
 # -- the radix split and the host fold against the reference ----------------
 
 @pytest.mark.parametrize("n_parts", [2, 8, 128])

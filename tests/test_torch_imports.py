@@ -1,6 +1,6 @@
 """The port stands alone: ``tidb_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor the reference package, import and serve SQL with both
-blocked, and without a card (and without ``set_device('cpu')``) a device
+blocked (in process and over the port's MySQL server), and without a card (and without ``set_device('cpu')``) a device
 query raises instead of running somewhere else.
 """
 
@@ -85,12 +85,56 @@ def test_port_serves_sql_with_jax_blocked():
         print(tk.must_query(q).rows)
         ex = tk.must_query("explain analyze " + q).rows
         assert any("engine:tpu" in str(c) for r in ex for c in r), ex
+        # the same query over the port's MySQL server and a socket
+        import socket, struct
+        from tidb_tpu_torch.server import MySQLServer
+        from tidb_tpu_torch.server import protocol as P
+        from tidb_tpu_torch.server.packet import (
+            PacketIO, read_lenenc_int, read_lenenc_str)
+        srv = MySQLServer(tk.domain, port=0).start()
+        sock = socket.create_connection(("127.0.0.1", srv.port), timeout=60)
+        io = PacketIO(sock)
+        io.read_packet()
+        io.write_packet(struct.pack("<II", P.CLIENT_PROTOCOL_41
+                                    | P.CLIENT_SECURE_CONNECTION
+                                    | P.CLIENT_PLUGIN_AUTH, 1 << 24)
+                        + bytes([255]) + bytes(23) + b"root" + bytes(2)
+                        + b"mysql_native_password" + bytes(1))
+        assert io.read_packet()[0] == 0
+        io.reset_seq()
+        io.write_packet(bytes([P.COM_QUERY])
+                        + b"set @@tidb_executor_engine = 'tpu'")
+        assert io.read_packet()[0] == 0
+        io.reset_seq()
+        io.write_packet(bytes([P.COM_QUERY])
+                        + q.replace("from t", "from test.t").encode())
+        ncols = read_lenenc_int(io.read_packet(), 0)[0]
+        for _ in range(ncols + 1):
+            io.read_packet()
+        wire = []
+        while True:
+            pkt = io.read_packet()
+            if pkt[0] == 0xFE and len(pkt) < 9:
+                break
+            row, pos = [], 0
+            for _ in range(ncols):
+                if pkt[pos] == 0xFB:
+                    row.append(None)
+                    pos += 1
+                else:
+                    v, pos = read_lenenc_str(pkt, pos)
+                    row.append(v.decode())
+            wire.append(tuple(row))
+        sock.close()
+        srv.shutdown()
+        print("wire", wire)
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu")]
     """))
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert ("[(None, '4.00', '1'), ('a', '1.50', '2'), ('b', '2.25', '1')]"
-            in proc.stdout)
+    rows = "[(None, '4.00', '1'), ('a', '1.50', '2'), ('b', '2.25', '1')]"
+    assert rows in proc.stdout
+    assert "wire " + rows in proc.stdout
 
 
 def test_device_query_without_card_raises():

@@ -8,7 +8,8 @@ and compare their answers:
 * :func:`install_bulk_numpy` — the port's counterpart of the reference
   benchmark's bulk loader (``bench.py _install``): numpy arrays, or
   ``(codes, dictionary)`` pairs for dictionary-encoded strings, installed
-  through ``columnar_cache.install_bulk``;
+  through ``columnar_cache.install_bulk`` (a partitioned table partition
+  by partition);
 * :func:`install_paged_numpy` — the same arrays as a paged (disk-backed,
   memmap) table, as ``bench.py gen_all`` writes its big tables from SF5;
 * :func:`to_torch` — the numpy argument tree of ``_agg_kernel`` /
@@ -93,8 +94,30 @@ def _dict_col(codes, dictionary, ft):
 def install_bulk_numpy(domain, db: str, table: str, data: dict, n: int):
     """Install `data` (column name → numpy array, or (codes, dictionary)
     for a dict-encoded string column) as table `db.table`'s rows through
-    the bulk loader; handles are 1..n."""
+    the bulk loader; handles are 1..n.  A partitioned table's rows go to
+    their partitions (:func:`partition_rows`), each installed on its
+    physical view (``partition.partition_view``); the return value is
+    then the list of the partitions' views."""
     info = domain.infoschema().table_by_name(db, table)
+    handles = np.arange(1, n + 1, dtype=np.int64)
+    if info.partition is None:
+        return domain.columnar_cache.install_bulk(
+            info, _bulk_columns(info, data, n), handles)
+    from .partition import partition_view
+    part = partition_rows(info, data, n)
+    views = []
+    for i, d in enumerate(info.partition.defs):
+        rows = np.flatnonzero(part == i)
+        sub = {name: ((arr[0][rows], arr[1]) if isinstance(arr, tuple)
+                      else np.asarray(arr)[rows])
+               for name, arr in data.items()}
+        views.append(domain.columnar_cache.install_bulk(
+            partition_view(info, d), _bulk_columns(info, sub, len(rows)),
+            handles[rows]))
+    return views
+
+
+def _bulk_columns(info, data: dict, n: int) -> dict:
     cols = {c.name: c for c in info.public_columns()}
     z = np.zeros(n, dtype=bool)
     columns = {}
@@ -105,8 +128,36 @@ def install_bulk_numpy(domain, db: str, table: str, data: dict, n: int):
             columns[c.id] = _dict_col(codes, dictionary, c.ftype)
         else:
             columns[c.id] = Column(c.ftype, np.asarray(arr), z)
-    return domain.columnar_cache.install_bulk(
-        info, columns, np.arange(1, n + 1, dtype=np.int64))
+    return columns
+
+
+def partition_rows(info, data: dict, n: int) -> np.ndarray:
+    """Each row's partition, as an index into ``info.partition.defs``: the
+    partition function (a bare column, or YEAR / MONTH / TO_DAYS of a
+    date) over the rows' internal values, routed as
+    ``partition.locate_partition`` routes one row.  The partition column
+    must be a plain array without NULLs."""
+    from .partition import _TO_DAYS_EPOCH, locate_partition
+    from .sqltypes import TYPE_DATETIME, TYPE_TIMESTAMP
+    p = info.partition
+    col = info.find_column(p.col_name)
+    v = np.asarray(data[col.name]).astype(np.int64)
+    if p.func and col.ftype.tp in (TYPE_DATETIME, TYPE_TIMESTAMP):
+        v = v // 86_400_000_000  # micros → days
+    if p.func == "year":
+        v = v.astype("datetime64[D]").astype("datetime64[Y]").astype(
+            np.int64) + 1970
+    elif p.func == "month":
+        v = v.astype("datetime64[D]").astype("datetime64[M]").astype(
+            np.int64) % 12 + 1
+    elif p.func == "to_days":
+        v = v + _TO_DAYS_EPOCH
+    if p.type == "hash":
+        return np.abs(v) % p.num
+    uniq, inv = np.unique(v, return_inverse=True)
+    index = {d.id: i for i, d in enumerate(p.defs)}
+    return np.asarray([index[locate_partition(p, int(u)).id] for u in uniq],
+                      dtype=np.int64)[inv]
 
 
 def install_paged_numpy(domain, db: str, table: str, data: dict, n: int,

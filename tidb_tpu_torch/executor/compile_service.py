@@ -12,8 +12,12 @@ wait for ROADMAP queue 1's compile layer.
 
 What stays as in the reference: the compile-scoped circuit breaker, the
 ``device-compile`` failpoint, the per-fragment ``compile_mode``
-annotation, the ``sync_compile_seconds`` histogram and the
-``compile_queue_depth`` gauge EXPLAIN ANALYZE reads (always 0 here).
+annotation, the ``sync_compile_seconds`` histogram, and the gauges of
+:func:`snapshot` under the reference's keys (the status page's
+``device_compiler``).  The background keys hold what a synchronous
+service has: no queue, no workers, no background builds; the inline
+builds, the breaker's refusals and the last classified error are
+counted.
 """
 
 from __future__ import annotations
@@ -26,6 +30,22 @@ _LOCK = threading.Lock()
 
 #: observe sinks mirroring the gauges (pattern of scheduler/residency)
 _SINKS: "weakref.WeakSet" = weakref.WeakSet()
+
+#: the reference's counters; only the synchronous ones ever move here
+STATS = {
+    "bg_submitted": 0,        # background jobs enqueued (none here)
+    "bg_completed": 0,
+    "bg_failed": 0,
+    "bg_discarded": 0,
+    "sync_compiles": 0,       # builds done inline on the query path
+    "compile_pending_fragments": 0,
+    "compile_prewarmed": 0,
+    "compile_persist_hits": 0,
+    "compile_bg_seconds": 0.0,
+    "breaker_degrades": 0,    # obtains refused by an OPEN compile breaker
+    "bg_backlog_rejects": 0,
+}
+_LAST_ERROR = [""]
 
 
 def _mode(mode: str):
@@ -67,6 +87,8 @@ def _obtain_impl(key, build, dict_refs, ctx, shape, _tsp):
     except Exception:
         pass
     if not br.allow(session=sid, group=group):
+        with _LOCK:
+            STATS["breaker_degrades"] += 1
         if _tsp is not None:
             _tsp.tags["mode"] = "breaker_open"
         tracing.event("host_degraded", reason="compile_breaker_open",
@@ -90,6 +112,8 @@ def _obtain_impl(key, build, dict_refs, ctx, shape, _tsp):
         from ..errors import DeviceCompileError
         err = DeviceCompileError(f"device compile failed ({cls}): {e}")
         err.__cause__ = e
+        with _LOCK:
+            _LAST_ERROR[0] = f"{cls}: {e}"
         br.record_failure(err, session=sid, group=group)
         if _tsp is not None:
             _tsp.tags["mode"] = "sync_failed"
@@ -98,6 +122,8 @@ def _obtain_impl(key, build, dict_refs, ctx, shape, _tsp):
             f"device compile failed ({cls}): {e} "
             f"({shape} fragment degraded to host engine)") from err
     br.record_success(session=sid)
+    with _LOCK:
+        STATS["sync_compiles"] += 1
     from .device_exec import _pipe_cache_put
     _pipe_cache_put(key, fn, dict_refs)
     _mode("sync")
@@ -126,10 +152,33 @@ def on_backend_reinit():
 
 # -- gauges -------------------------------------------------------------------
 
+def queue_depth() -> int:
+    """Background jobs waiting: builds are synchronous, so none."""
+    return 0
+
+
+def snapshot() -> dict:
+    with _LOCK:
+        return {"compile_queue_depth": 0,
+                "recipes": 0,
+                "workers": 0,
+                "last_error": _LAST_ERROR[0],
+                **{k: (round(v, 3) if isinstance(v, float) else v)
+                   for k, v in STATS.items()}}
+
+
 def report_gauges() -> dict:
     """What EXPLAIN ANALYZE shows (the reference's policy: queue depth
-    always; its background counters never fire here)."""
-    return {"compile_queue_depth": 0}
+    always, the counters only once they have ever fired)."""
+    s = snapshot()
+    out = {"compile_queue_depth": s["compile_queue_depth"]}
+    for k in ("compile_pending_fragments", "compile_persist_hits",
+              "compile_prewarmed", "bg_failed"):
+        if s[k]:
+            out[k] = s[k]
+    if s["compile_bg_seconds"]:
+        out["compile_bg_seconds"] = s["compile_bg_seconds"]
+    return out
 
 
 def attach(ctx):

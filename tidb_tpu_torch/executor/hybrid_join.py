@@ -135,6 +135,29 @@ def _publish_gauges():
             pass
 
 
+def snapshot() -> dict:
+    from ..storage.paged import spill_outstanding
+    with _LOCK:
+        out = dict(STATS)
+    sp = spill_outstanding()
+    out.update({"spill_open_sets": sp["open_sets"],
+                "spill_open_bytes": sp["open_bytes"]})
+    return out
+
+
+def report_gauges() -> dict:
+    """EXPLAIN ANALYZE / bench surfacing policy: the hybrid gauges appear
+    once the path has ever run (spill is the exception, not annotation
+    noise on every healthy resident-build plan)."""
+    with _LOCK:
+        if not STATS["hj_runs"]:
+            return {}
+        return {"hj_partitions": STATS["hj_partitions"],
+                "hj_spilled_partitions": STATS["hj_spilled_partitions"],
+                "hj_spill_bytes": STATS["hj_spill_bytes"],
+                "hj_coproc_host_rows": STATS["hj_coproc_host_rows"]}
+
+
 def _observe_hist(name, value, ctx):
     obs = getattr(getattr(ctx, "domain", None), "observe", None)
     if obs is not None and hasattr(obs, "observe_hist"):

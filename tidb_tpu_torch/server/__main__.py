@@ -1,0 +1,5 @@
+from .main import main
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main())
