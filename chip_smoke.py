@@ -140,6 +140,33 @@ Phases, each fatal on failure:
    made with SQL there (``engine:tpu``), and exits 0 on SIGTERM.  One
    ``[server]`` line per query: ms over the wire, the same query's
    in-process ms (phase 4 or 6) and its launches;
+6c. ``[fleet]`` — ``fabric.fleet.Fleet``: two ``python -m
+   tidb_tpu_torch.fabric.worker`` processes on the card
+   (``TIDB_TPU_TORCH_DEVICE=cuda``, no compile server) over one durable
+   log in a temporary run directory, each with
+   ``tidb_device_mem_budget`` at 0.3 of the card's free memory, seeded
+   by ``carry.fleet_seed`` (the SF1 tables from --seed and 7 in every
+   worker; their schema, statistics and ``test.ledger`` written once
+   through the log); each worker's boot time; over ``FleetClient`` to
+   each worker's direct port, the result cache off, Q1, Q3 and Q18 twice
+   with phase 4's host rows (``[server]``'s tolerance), ``engine:tpu``
+   in EXPLAIN ANALYZE over the wire, wire ms beside ``[server]``'s; each
+   worker's device-resident bytes as the segment holds them; Q1 on one
+   worker then the other with the cache on (the outcome each got), then
+   Q1 and the ledger's GROUP BY sent to both at once behind a barrier,
+   three rounds (rows equal; the segment's dedup and cache counts);
+   transfers on the ledger from both workers (each logged in
+   ``test.transfers``, the sum read back every tenth) through a SIGKILL
+   of one worker, its respawn and a drained shutdown: every acked
+   transfer on both workers, nothing else but the one in doubt, every
+   balance its transfers' sum, Q1 on the respawned worker on
+   ``engine:tpu``; a cold fleet over the same log, the same checks and
+   Q1 on both; BACKUP of ``test``, logical and physical, RESTORE under
+   new names, the restored ledger's GROUP BY on ``engine:tpu`` on both
+   workers equal to the original; each drained worker must have
+   launched K2 and K1, the workers together K4, K5a and K5b (their drain
+   summaries' ``launches``), and no worker may rebuild the kernel
+   library; the drain summaries' log gauges and dedup counts;
 7. ``[paged-sf1]`` — the same SF1 ``lineitem`` and ``orders`` a second
    time, as paged (memmap) tables in a temporary directory removed at
    exit (``carry.install_tpch``'s paged option, db ``tpch_paged``, the
@@ -200,8 +227,9 @@ Phases, each fatal on failure:
    mesh (Q3 through the hash exchange: orders' 15,000,000 rows), warm-up
    then timed, rows equal to ``[sf10]``'s resident rows, and Q3 under
    torch.profiler;
-11. report — the card's name and power limit, a ``kernels`` JSON line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+11. report — the card's name and power limit, a ``kernels`` JSON line
+   (``launches_server`` and ``launches_fleet`` beside each row's main-path
+   ``launches``), and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the ``tidb_tpu_torch`` package beside it,
 the script exits non-zero before printing any result.
@@ -3009,7 +3037,7 @@ SERVER_NEED = {"q1": _AGG, "q1_prepared": _AGG, "q3": _JOIN, "q18": _JOIN,
 
 def wire_run(c, name, sql, counters, want, ms_in, args=None):
     """One wire query: its rows against `want`, its kernels launched; one
-    ``[server]`` line.  Returns the launches it made."""
+    ``[server]`` line.  Returns its ms over the wire."""
     import datetime
     before = {k: v[0] for k, v in counters.items()}
     t0 = time.perf_counter()
@@ -3033,7 +3061,7 @@ def wire_run(c, name, sql, counters, want, ms_in, args=None):
     log(f"[server] {name}{binary}: {len(res[2])} rows equal; wire "
         f"{dt:.3f} ms, in-process {ms_in[0]:.3f} ms ({ms_in[1]}); "
         f"launches {moved}")
-    return moved
+    return dt
 
 
 def wire_engine_tpu(c, name, sql, op="HashAgg"):
@@ -3052,7 +3080,8 @@ def phase_server(dom, s, host_res, main_ms, w2, lineitem, report):
     """``[server]``: the port's MySQL server and status server in this
     process over the SF1 tables; the queries over TCP on the device
     engine, their rows against phase 4's and phase 6's, their launches;
-    lineitem_p; the status page; the process entry."""
+    lineitem_p; the status page; the process entry.  Returns Q1's, Q3's,
+    Q18's and W2's ms over the wire."""
     import datetime
     import threading
     import urllib.request
@@ -3095,9 +3124,11 @@ def phase_server(dom, s, host_res, main_ms, w2, lineitem, report):
                    ("q3", Q3, host_res["q3"], main_ms["q3"]),
                    ("q18", Q18, host_res["q18"], main_ms["q18"]),
                    ("w2", W2, w2_res, w2_ms)]
+        wire_ms = {}
         for name, sql, want, ms_in in queries:
-            wire_run(c, name, sql, counters, want,
-                     (ms_in, f"phase {6 if name == 'w2' else 4}"))
+            wire_ms[name] = wire_run(
+                c, name, sql, counters, want,
+                (ms_in, f"phase {6 if name == 'w2' else 4}"))
         wire_run(c, "q1_prepared", Q1_PREPARED, counters, host_res["q1"],
                  (main_ms["q1"], "phase 4, text"),
                  args=[datetime.date(1998, 9, 2)])
@@ -3175,6 +3206,7 @@ def phase_server(dom, s, host_res, main_ms, w2, lineitem, report):
         status.shutdown()
         srv.shutdown()
     server_process()
+    return wire_ms
 
 
 def server_process():
@@ -3241,6 +3273,589 @@ def server_process():
             proc.kill()
             proc.wait()
         err.close()
+
+
+# -- the serving fleet: two worker processes over one durable store ----------
+
+#: the [fleet] phase's workers and init hook (carry.fleet_seed: the SF1
+#: tables in every worker, their KV half and the ledger once, through the
+#: shared log)
+FLEET_WORKERS = 2
+FLEET_INIT = "tidb_tpu_torch.carry:fleet_seed"
+#: each worker's tidb_device_mem_budget: this share of the card's free
+#: memory when the phase starts (a worker's own auto budget would count
+#: the whole card as its own)
+FLEET_MEM_SHARE = 0.3
+#: bounds of the phase's waits, in seconds
+FLEET_BOOT_S = 420.0
+FLEET_WAIT_S = 240.0
+#: transfers each worker's client must have acknowledged before the kill,
+#: and again after the respawn; rounds of Q1 sent to both workers at once
+FLEET_TRANSFERS = 30
+FLEET_ROUNDS = 3
+#: the restored ledger's aggregate
+LEDGER_AGG = ("select branch, count(*), sum(bal) from {}.ledger "
+              "group by branch order by branch")
+
+
+def fleet_client(fleet, slot, cache=False):
+    """A FleetClient on `slot`'s direct port, db tpch, on the device
+    engine, the result cache on or off."""
+    from tidb_tpu_torch.fabric.client import FleetClient
+    c = FleetClient(fleet.direct_port(slot), db="tpch", timeout=600)
+    c.must_exec("set tidb_executor_engine = 'tpu'")
+    c.must_exec(f"set tidb_result_cache = '{'ON' if cache else 'OFF'}'")
+    return c
+
+
+def fleet_rows_equal(rows, res):
+    """FleetClient's text rows against a session Result, at [server]'s
+    tolerance (the text protocol's cells; DOUBLE / FLOAT columns of
+    `res` within rtol 1e-9 / atol 1e-12)."""
+    return wire_equal((None, [f.tp & 0xFF for f in res.ftypes], rows), res)
+
+
+def fleet_outcome(c, sql):
+    """What served `sql` on this connection, from EXPLAIN ANALYZE over
+    the wire: "engine:tpu" when every HashAgg ran on the device, "cache"
+    when the fleet's result cache served it; else the run fails."""
+    _cols, rows = c.must_query("explain analyze " + sql)
+    lines = [" ".join(str(x) for x in r) for r in rows
+             if "HashAgg" in str(r[0])]
+    if lines and all("engine:tpu" in ln for ln in lines):
+        return "engine:tpu"
+    if lines and any("engine:cache" in ln for ln in lines):
+        return "cache"
+    for r in rows:
+        log(f"    {r}")
+    fail(f"[fleet] {sql[:50]!r}: EXPLAIN ANALYZE over the wire shows a "
+         "HashAgg neither on engine:tpu nor served by the cache")
+
+
+def fleet_boot(label, run_dir, sysvars, env):
+    """Start a fleet of FLEET_WORKERS over `run_dir` and time each
+    worker's boot; a worker that does not come up fails the run (and the
+    fleet is shut down)."""
+    import threading
+    from tidb_tpu_torch.fabric.fleet import Fleet
+    fleet = Fleet(FLEET_WORKERS, init=FLEET_INIT, compile_server=False,
+                  durable=True, sysvars=sysvars, env_extra=env,
+                  run_dir=run_dir)
+    err = []
+
+    def start():
+        try:
+            fleet.start(timeout_s=FLEET_BOOT_S)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            err.append(e)
+    t0 = time.monotonic()
+    th = threading.Thread(target=start)
+    th.start()
+    ready = {}
+    while th.is_alive() or len(ready) < FLEET_WORKERS:
+        for s in fleet.slots:
+            if s.idx not in ready and s.ready.is_set():
+                ready[s.idx] = (time.monotonic() - t0,
+                                time.monotonic() - s.started_at)
+        if not th.is_alive() and (err or len(ready) == FLEET_WORKERS):
+            break
+        time.sleep(0.02)
+    th.join()
+    if err:
+        fleet.shutdown(drain=False)
+        fail(f"[fleet] {label}: the fleet did not start: {err[0]} "
+             f"(worker lines: {fleet.lines[-5:]})")
+    boot = time.monotonic() - t0
+    log(f"[fleet] {label}: {FLEET_WORKERS} workers up in {boot:.1f}s; "
+        + "; ".join(f"slot {i} ready at {ready[i][0]:.1f}s, "
+                    f"{ready[i][1]:.1f}s after its spawn (pid "
+                    f"{fleet.worker_pid(i)})" for i in sorted(ready)))
+    return fleet, boot
+
+
+def fleet_resident_bytes(fleet):
+    """Each slot's device-resident bytes as its residency ledger charges
+    them to the segment (the fleet residency hook)."""
+    total = fleet.coord.hbm_remote_bytes("default", exclude_slot=-1)
+    return {s: total - fleet.coord.hbm_remote_bytes("default", exclude_slot=s)
+            for s in range(FLEET_WORKERS)}
+
+
+class Teller:
+    """One client thread of transfers on ``test.ledger`` through one
+    worker: each transfer moves an amount between two accounts (locked
+    in account order) and logs itself in ``test.transfers``, in one
+    transaction.  A transfer whose COMMIT was answered OK is acked; one
+    cut by a lost connection is in doubt (the worker died with it); a
+    refused one (a lock wait, a conflict) is counted by its error code.
+    Every tenth ack, the sum of the balances is read back.  Only a
+    client that `may_die` rides out a lost connection (its worker is the
+    one the phase kills)."""
+
+    def __init__(self, fleet, slot, seed, total, may_die=False):
+        import random
+        import threading
+        self.fleet, self.slot, self.total = fleet, slot, total
+        self.may_die = may_die
+        self.rng = random.Random(seed)
+        self.acked, self.in_doubt, self.refused = [], [], {}
+        self.commit_ms = []
+        self.sum_checks = 0
+        self.error = None
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _connect(self):
+        from tidb_tpu_torch.fabric.client import FleetClient
+        c = FleetClient(self.fleet.direct_port(self.slot), db="test",
+                        timeout=120)
+        c.must_exec("set innodb_lock_wait_timeout = 10")
+        return c
+
+    def _transfer(self, c, t):
+        tid, src, dst, amt = t
+        lo, hi = sorted((src, dst))
+        delta = {src: -amt, dst: amt}
+        t0 = time.perf_counter()
+        for sql in ("begin",
+                    f"update ledger set bal = bal + {delta[lo]} "
+                    f"where acct = {lo}",
+                    f"update ledger set bal = bal + {delta[hi]} "
+                    f"where acct = {hi}",
+                    f"insert into transfers values ({tid}, {src}, {dst}, "
+                    f"{amt})",
+                    "commit"):
+            kind, payload = c.query(sql)
+            if kind == "err":
+                c.query("rollback")
+                return payload[0]
+        self.commit_ms.append((time.perf_counter() - t0) * 1e3)
+        return 0
+
+    def _run(self):
+        from tidb_tpu_torch import carry
+        from tidb_tpu_torch.fabric.client import WireError
+        try:
+            c = self._connect()
+            seq = 0
+            while not self.stop.is_set():
+                seq += 1
+                src, dst = self.rng.sample(range(1, carry.LEDGER_ACCTS + 1),
+                                           2)
+                t = ((self.slot + 1) * 1_000_000 + seq, src, dst,
+                     self.rng.randint(1, 50))
+                pid = self.fleet.worker_pid(self.slot)
+                acked = False
+                try:
+                    code = self._transfer(c, t)
+                    if code:
+                        self.refused[code] = self.refused.get(code, 0) + 1
+                        continue
+                    self.acked.append(t)
+                    acked = True
+                    if len(self.acked) % 10 == 0:
+                        self._check_sum(c)
+                except WireError:
+                    # the worker died under this client: a transfer it
+                    # had not acked is in doubt; go on against the
+                    # respawned worker
+                    if not self.may_die:
+                        raise
+                    if not acked:
+                        self.in_doubt.append(t)
+                    if not self.fleet.wait_respawn(self.slot, pid,
+                                                   FLEET_WAIT_S):
+                        raise
+                    c = self._connect()
+            c.close()
+        except BaseException as e:  # noqa: BLE001 - reported by the phase
+            self.error = e
+
+    def _check_sum(self, c):
+        from tidb_tpu_torch import carry
+        got = c.must_query("select sum(bal), count(*) from ledger")[1]
+        if got != [(str(self.total), str(carry.LEDGER_ACCTS))]:
+            raise AssertionError(
+                f"slot {self.slot}: ledger sum / count {got}, not "
+                f"{self.total} / {carry.LEDGER_ACCTS}")
+        self.sum_checks += 1
+
+    def wait_acked(self, n, what):
+        deadline = time.monotonic() + FLEET_WAIT_S
+        while len(self.acked) < n:
+            if self.error is not None or time.monotonic() > deadline:
+                fail(f"[fleet] slot {self.slot}'s client has "
+                     f"{len(self.acked)} acked transfers, not {n}, "
+                     f"{what}: {self.error!r}")
+            time.sleep(0.02)
+
+    def finish(self):
+        self.stop.set()
+        self.thread.join(FLEET_WAIT_S)
+        if self.thread.is_alive():
+            fail(f"[fleet] slot {self.slot}'s client hung")
+        if self.error is not None:
+            fail(f"[fleet] slot {self.slot}'s client: "
+                 f"{type(self.error).__name__}: {self.error}")
+
+
+def check_ledger(fleet, tellers, label):
+    """On every worker: the balances keep their sum; every acked
+    transfer is in ``transfers``, and nothing but acked and in-doubt
+    ones; each account's balance is its seed plus the transfers present.
+    Returns the ledger's aggregate by branch (equal on every worker)."""
+    from tidb_tpu_torch import carry
+    from tidb_tpu_torch.fabric.client import FleetClient
+    acked = {t[0]: t for tl in tellers for t in tl.acked}
+    doubt = {t[0]: t for tl in tellers for t in tl.in_doubt}
+    aggs = []
+    for slot in range(FLEET_WORKERS):
+        c = FleetClient(fleet.direct_port(slot), db="test", timeout=120)
+        try:
+            present = {int(r[0]): (int(r[0]), int(r[1]), int(r[2]),
+                                   int(r[3]))
+                       for r in c.must_query(
+                           "select id, src, dst, amt from transfers")[1]}
+            bal = {int(a): int(b) for a, b in c.must_query(
+                "select acct, bal from ledger")[1]}
+            aggs.append(c.must_query(LEDGER_AGG.format("test"))[1])
+        finally:
+            c.close()
+        lost = sorted(set(acked) - set(present))
+        if lost:
+            fail(f"[fleet] {label}: slot {slot} lacks {len(lost)} acked "
+                 f"transfers, e.g. {lost[:5]}")
+        extra = sorted(set(present) - set(acked) - set(doubt))
+        if extra:
+            fail(f"[fleet] {label}: slot {slot} holds transfers no client "
+                 f"made: {extra[:5]}")
+        want = {a: carry.LEDGER_SEED_BAL
+                for a in range(1, carry.LEDGER_ACCTS + 1)}
+        for _tid, src, dst, amt in present.values():
+            want[src] -= amt
+            want[dst] += amt
+        if bal != want:
+            bad = [a for a in want if bal.get(a) != want[a]]
+            fail(f"[fleet] {label}: slot {slot}'s balances disagree with "
+                 f"its transfers at {len(bad)} accounts, e.g. "
+                 f"{[(a, bal.get(a), want[a]) for a in bad[:3]]}")
+        total = sum(bal.values())
+        if total != carry.LEDGER_ACCTS * carry.LEDGER_SEED_BAL:
+            fail(f"[fleet] {label}: slot {slot}'s balances sum to {total}")
+        log(f"[fleet] {label}: slot {slot}: {len(acked)} acked transfers "
+            f"all present, {len(set(present) & set(doubt))} of "
+            f"{len(doubt)} in doubt present, sum of {len(bal)} balances "
+            f"{total}")
+    if any(a != aggs[0] for a in aggs):
+        fail(f"[fleet] {label}: the workers' ledger aggregates differ")
+    return aggs[0]
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _s, names in os.walk(path) for f in names)
+
+
+def phase_fleet(host_res, server_ms, seed, report):
+    """``[fleet]``: two worker processes on the card over one durable
+    shared store (``fabric.fleet.Fleet``), serving the SF1 tables over
+    the wire; their sharing; a SIGKILL under concurrent transfers and a
+    cold restart; BACKUP / RESTORE.
+
+    A Fleet spawns its workers in its own working directory and puts
+    that first on their PYTHONPATH, so the phase runs from this
+    checkout: the workers import the package this script imports, and
+    each drain summary's ``package`` must lie here."""
+    prev = os.getcwd()
+    os.chdir(HERE)
+    try:
+        fleet_phase(host_res, server_ms, seed, report)
+    finally:
+        os.chdir(prev)
+
+
+def fleet_phase(host_res, server_ms, seed, report):
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from tidb_tpu_torch import carry
+    from tidb_tpu_torch.fabric.client import FleetClient
+    from tidb_tpu_torch.fabric.worker import DEVICE_ENV, LAUNCH_COUNTERS
+    from tidb_tpu_torch.ops.kernels import build as kbuild
+    t_phase = time.monotonic()
+    free, total_mem = torch.cuda.mem_get_info()
+    share = int(free * FLEET_MEM_SHARE)
+    sysvars = {"tidb_device_mem_budget": str(share)}
+    env = {DEVICE_ENV: "cuda", carry.FLEET_SF_ENV: str(SF),
+           carry.FLEET_SEED_ENV: str(seed)}
+    lib = kbuild.library_path()
+    libs_before = {f: os.stat(os.path.join(kbuild.BUILD_DIR, f)).st_mtime_ns
+                   for f in os.listdir(kbuild.BUILD_DIR) if f.endswith(".so")}
+    if os.path.basename(lib) not in libs_before:
+        fail("[fleet] the kernel library is not built before the fleet")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    log(f"[fleet] card {smi.stdout.strip()}; memory free "
+        f"{free / 1e9:.3f} of {total_mem / 1e9:.3f} GB; each worker's "
+        f"tidb_device_mem_budget {share} bytes ({FLEET_MEM_SHARE} of free)")
+    run_dir = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    summaries, tellers = [], []
+    fleet = None
+    try:
+        fleet, boot1 = fleet_boot("boot", run_dir, sysvars, env)
+        # -- serving on the card ------------------------------------------
+        for slot in range(FLEET_WORKERS):
+            c = fleet_client(fleet, slot)
+            try:
+                for name in ("q1", "q3", "q18"):
+                    sql = dict(QUERIES)[name]
+                    ms = []
+                    for _ in range(2):
+                        t0 = time.perf_counter()
+                        rows = c.must_query(sql)[1]
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                        if not fleet_rows_equal(rows, host_res[name]):
+                            fail(f"[fleet] slot {slot} {name}: rows differ "
+                                 f"from the host engine's:\nwire {rows[:3]}"
+                                 f"\nhost {host_res[name].rows[:3]}")
+                    if fleet_outcome(c, sql) != "engine:tpu":
+                        fail(f"[fleet] slot {slot} {name}: not engine:tpu "
+                             "with the result cache off")
+                    log(f"[fleet] slot {slot} {name}: {len(rows)} rows equal"
+                        f" the host engine's; wire {ms[0]:.3f} ms first "
+                        f"(uploads and builds), {ms[1]:.3f} ms again "
+                        f"([server] {server_ms[name]:.3f} ms); EXPLAIN "
+                        "ANALYZE engine:tpu")
+            finally:
+                c.close()
+        log(f"[fleet] device-resident bytes charged to the segment by slot: "
+            f"{fleet_resident_bytes(fleet)}; card memory free "
+            f"{torch.cuda.mem_get_info()[0] / 1e9:.3f} GB")
+        # -- the fleet's sharing: the result cache and dedup --------------
+        q1 = dict(QUERIES)["q1"]
+        conns = [fleet_client(fleet, s, cache=True)
+                 for s in range(FLEET_WORKERS)]
+        try:
+            outcomes, got = [], []
+            for c in conns:
+                outcomes.append(fleet_outcome(c, q1))
+                got.append(c.must_query(q1)[1])
+            if not all(fleet_rows_equal(r, host_res["q1"]) for r in got):
+                fail("[fleet] Q1 with the cache on: rows differ")
+            log(f"[fleet] Q1 on slot 0 then slot 1, the cache on: rows "
+                f"equal; outcomes {outcomes}")
+            ledger_agg = LEDGER_AGG.format("test")
+            want_agg = conns[0].must_query(ledger_agg)[1]
+            for name, sql, cache in (("Q1", q1, "ON"),
+                                     ("the ledger's GROUP BY", ledger_agg,
+                                      "OFF")):
+                for c in conns:
+                    c.must_exec(f"set tidb_result_cache = '{cache}'")
+                before = fleet.coord.counters()
+                barrier = threading.Barrier(FLEET_WORKERS)
+                errors = []
+
+                def run(c, sql=sql):
+                    try:
+                        for _ in range(FLEET_ROUNDS):
+                            barrier.wait(FLEET_WAIT_S)
+                            rows = c.must_query(sql)[1]
+                            if not (fleet_rows_equal(rows, host_res["q1"])
+                                    if sql == q1 else rows == want_agg):
+                                errors.append("rows differ")
+                    except BaseException as e:  # noqa: BLE001 - below
+                        errors.append(f"{type(e).__name__}: {e}")
+                ths = [threading.Thread(target=run, args=(c,))
+                       for c in conns]
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join(FLEET_WAIT_S * FLEET_ROUNDS)
+                if errors or any(th.is_alive() for th in ths):
+                    fail(f"[fleet] {name} on both workers at once: "
+                         f"{errors or 'hung'}")
+                after = fleet.coord.counters()
+                log(f"[fleet] {name} on both workers at once, "
+                    f"{FLEET_ROUNDS} rounds, the cache {cache}: rows equal; "
+                    "segment " + ", ".join(
+                        f"{k} +{after[k] - before[k]}"
+                        for k in ("fabric_dedup_leads", "fabric_dedup_hits",
+                                  "fabric_dedup_timeouts",
+                                  "fabric_cache_hits")))
+        finally:
+            for c in conns:
+                c.close()
+        # -- durability: transfers, a SIGKILL, the respawn -----------------
+        c = FleetClient(fleet.direct_port(0), db="test", timeout=120)
+        c.must_exec("create table transfers (id bigint primary key, "
+                    "src int, dst int, amt int)")
+        c.close()
+        c = FleetClient(fleet.direct_port(1), db="test", timeout=120)
+        try:
+            deadline = time.monotonic() + FLEET_WAIT_S
+            while c.query("select count(*) from transfers")[0] != "rows":
+                if time.monotonic() > deadline:
+                    fail("[fleet] slot 1 never saw slot 0's CREATE TABLE")
+                time.sleep(0.05)
+        finally:
+            c.close()
+        total = carry.LEDGER_ACCTS * carry.LEDGER_SEED_BAL
+        tellers = [Teller(fleet, s, 1000 + s, total, may_die=(s == 1))
+                   for s in range(FLEET_WORKERS)]
+        # past a multiple of ten: the kill lands in a transfer, not in
+        # a client's sum check
+        tellers[1].wait_acked(FLEET_TRANSFERS + 5, "before the kill")
+        old_pid = fleet.worker_pid(1)
+        n0 = len(tellers[0].acked)
+        t_kill = time.monotonic()
+        fleet.kill_worker(1)
+        if not fleet.wait_respawn(1, old_pid, FLEET_WAIT_S):
+            fail("[fleet] slot 1 was not respawned after SIGKILL")
+        respawn_s = time.monotonic() - t_kill
+        survivor = len(tellers[0].acked) - n0
+        n1 = len(tellers[1].acked)
+        tellers[1].wait_acked(n1 + FLEET_TRANSFERS, "after the respawn")
+        tellers[0].wait_acked(n0 + FLEET_TRANSFERS, "after the respawn")
+        for tl in tellers:
+            tl.finish()
+        log(f"[fleet] SIGKILL of slot 1 (pid {old_pid}) under transfers from"
+            f" both workers: respawned as pid {fleet.worker_pid(1)} in "
+            f"{respawn_s:.1f}s; slot 0 acked {survivor} transfers meanwhile")
+        for tl in tellers:
+            ms = sorted(tl.commit_ms)
+            log(f"[fleet] slot {tl.slot}'s client: {len(tl.acked)} acked, "
+                f"{len(tl.in_doubt)} in doubt, refused {tl.refused}, "
+                f"{tl.sum_checks} sum checks; a transfer over the wire "
+                f"p50 {ms[len(ms) // 2]:.3f} ms, p99 "
+                f"{ms[int(len(ms) * 0.99)]:.3f} ms")
+        if not tellers[1].in_doubt:
+            log("[fleet] (the kill cut no transfer: it landed between two)")
+        agg = check_ledger(fleet, tellers, "after the respawn")
+        c = fleet_client(fleet, 1)
+        try:
+            if not fleet_rows_equal(c.must_query(q1)[1], host_res["q1"]):
+                fail("[fleet] Q1 on the respawned worker: rows differ")
+            if fleet_outcome(c, q1) != "engine:tpu":
+                fail("[fleet] Q1 on the respawned worker: not engine:tpu")
+        finally:
+            c.close()
+        log("[fleet] Q1 on the respawned worker: rows equal, engine:tpu")
+        drained = fleet.shutdown()
+        summaries += [s.summary for s in fleet.slots]
+        fleet = None
+        if not (drained and drained["ok"]):
+            fail(f"[fleet] shutdown: not drained: {drained}")
+        log(f"[fleet] shutdown: drained {drained}")
+        # -- a cold fleet over the same log --------------------------------
+        fleet, boot2 = fleet_boot("cold restart over the same log", run_dir,
+                                  sysvars, env)
+        if check_ledger(fleet, tellers, "cold restart") != agg:
+            fail("[fleet] cold restart: the ledger's aggregate moved")
+        for slot in range(FLEET_WORKERS):
+            c = fleet_client(fleet, slot)
+            try:
+                if not fleet_rows_equal(c.must_query(q1)[1], host_res["q1"]):
+                    fail(f"[fleet] cold restart: Q1's rows differ on slot "
+                         f"{slot}")
+                if fleet_outcome(c, q1) != "engine:tpu":
+                    fail(f"[fleet] cold restart: Q1 not engine:tpu on slot "
+                         f"{slot}")
+            finally:
+                c.close()
+        log("[fleet] cold restart: Q1's rows equal on both workers, "
+            "engine:tpu")
+        # -- BACKUP / RESTORE -------------------------------------------------
+        for mode in ("logical", "physical"):
+            d = os.path.join(run_dir, f"br-{mode}")
+            db = f"ledger_{mode}"
+            c = FleetClient(fleet.direct_port(0), db="test", timeout=600)
+            try:
+                t0 = time.perf_counter()
+                c.must_query(f"backup database test to '{d}'"
+                             + (" mode physical" if mode == "physical"
+                                else ""))
+                t_bk = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                c.must_query(f"restore database {db} from '{d}'")
+                t_rs = time.perf_counter() - t0
+            finally:
+                c.close()
+            for slot in range(FLEET_WORKERS):
+                c = fleet_client(fleet, slot)
+                try:
+                    sql = LEDGER_AGG.format(db)
+                    if c.must_query(sql)[1] != agg:
+                        fail(f"[fleet] {mode} restore: slot {slot}'s ledger "
+                             "aggregate differs from the original")
+                    if fleet_outcome(c, sql) != "engine:tpu":
+                        fail(f"[fleet] {mode} restore: the aggregate is not "
+                             f"engine:tpu on slot {slot}")
+                finally:
+                    c.close()
+            log(f"[fleet] {mode} BACKUP of test {t_bk:.3f}s, "
+                f"{dir_bytes(d)} bytes; RESTORE as {db} {t_rs:.3f}s; the "
+                "restored ledger's GROUP BY equals the original on both "
+                "workers, engine:tpu")
+        drained = fleet.shutdown()
+        summaries += [s.summary for s in fleet.slots]
+        fleet = None
+        if not (drained and drained["ok"]):
+            fail(f"[fleet] cold fleet shutdown: not drained: {drained}")
+        # the replay alone: the fleet's log recovered in this process
+        from tidb_tpu_torch.kv import wal as wal_mod
+        from tidb_tpu_torch.kv.shared_store import DurableMVCCStore
+        eng = DurableMVCCStore(wal_mod.WAL(os.path.join(run_dir, "wal")))
+        try:
+            rec = eng.recover()
+        finally:
+            eng.close()
+        log(f"[fleet] the fleet's log recovered in this process: "
+            f"{rec['replayed']} records replayed in {rec['recover_s']:.3f}s"
+            f" (from a checkpoint: {rec['from_checkpoint']}, "
+            f"{rec['resolved_orphans']} orphans resolved)")
+    finally:
+        for tl in tellers:
+            tl.stop.set()
+        if fleet is not None:
+            fleet.shutdown(drain=False)
+        shutil.rmtree(run_dir, ignore_errors=True)
+    libs_after = {f: os.stat(os.path.join(kbuild.BUILD_DIR, f)).st_mtime_ns
+                  for f in os.listdir(kbuild.BUILD_DIR) if f.endswith(".so")}
+    if libs_after != libs_before:
+        fail(f"[fleet] a worker rebuilt the kernel library: {libs_before} -> "
+             f"{libs_after}")
+    if any(s is None for s in summaries):
+        fail("[fleet] a worker that drained printed no summary")
+    here_pkg = os.path.realpath(os.path.join(HERE, "tidb_tpu_torch"))
+    for s in summaries:
+        if os.path.realpath(s.get("package") or "") != here_pkg:
+            fail(f"[fleet] slot {s['slot']} (pid {s['pid']}) ran the package "
+                 f"at {s.get('package')}, not this checkout's {here_pkg}")
+    launches = {k: sum(s["launches"][k] for s in summaries)
+                for k in LAUNCH_COUNTERS}
+    for s in summaries:
+        if not (s["launches"]["expr_vm"] and s["launches"]["groupby_agg"]):
+            fail(f"[fleet] slot {s['slot']} (pid {s['pid']}) launched no K1 "
+                 f"or K2 on the card: {s['launches']}")
+        log(f"[fleet] drain summary slot {s['slot']} pid {s['pid']}: "
+            f"launches {s['launches']}; wal {s.get('wal')}; dedup leads "
+            f"{s['fabric']['fabric_dedup_leads']} hits "
+            f"{s['fabric']['fabric_dedup_hits']} timeouts "
+            f"{s['fabric']['fabric_dedup_timeouts']}; cache hits "
+            f"{s['fabric']['cache_hits']}")
+    for k in ("expr_vm", "groupby_agg", "sort_topk", "join_probe",
+              "join_expand"):
+        if launches[k] <= 0:
+            fail(f"[fleet] kernel {k} was never launched in a worker")
+    for k, n in launches.items():
+        report[k]["launches_fleet"] = n
+    log(f"[fleet] launches in the workers that drained ({len(summaries)} "
+        f"incarnations; the SIGKILLed one's count died with it): {launches}")
+    log(f"[fleet] phase {time.monotonic() - t_phase:.1f}s (boots "
+        f"{boot1:.1f}s and {boot2:.1f}s, respawn {respawn_s:.1f}s)")
 
 
 # -- the out-of-core path: paged tables, streamed and paged queries ----------
@@ -4262,9 +4877,12 @@ def main(argv=None) -> int:
         phase_done("mpp")
         w2 = phase_window(s, n_rows, supp_counts, report)
         phase_done("window")
-        phase_server(dom, s, host_res, main_ms, w2, lineitem, report)
+        server_ms = phase_server(dom, s, host_res, main_ms, w2, lineitem,
+                                 report)
         del lineitem
         phase_done("server")
+        phase_fleet(host_res, server_ms, args.seed, report)
+        phase_done("fleet")
         rate = pinned_h2d_rate()
         log(f"[h2d] pinned host -> device copy of 256 MiB: "
             f"{rate / 1e9:.3f} GB/s")
@@ -4328,8 +4946,9 @@ def main(argv=None) -> int:
              "launches_per_call", "copies_per_call",
              # kernels A and B at the [exchange-split] shapes
              "ms_split", "bound_ms_split",
-             # the [server] path's launches (counters at 0 before it)
-             "launches_server")
+             # the [server] path's launches (counters at 0 before it), and
+             # the [fleet] workers' (each worker's counters start at 0)
+             "launches_server", "launches_fleet")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report.values()]}))

@@ -210,13 +210,59 @@ def test_port_logger_names_are_its_own():
                     and node.args and isinstance(node.args[0], ast.Constant)):
                 names.append((os.path.relpath(path, ROOT),
                               str(node.args[0].value)))
-    assert len(names) >= 18
+    assert len(names) >= 26
     bad = [f"{p}: {n}" for p, n in names
            if not n.startswith("tidb_tpu_torch.")]
     assert not bad, "\n".join(bad)
+    # the durable store, the fleet and BR name theirs too
+    named = {p for p, _n in names}
+    for rel in ("kv/shared_store.py", "fabric/coord_net.py",
+                "fabric/dedup.py", "fabric/worker.py", "fabric/fleet.py",
+                "fabric/region.py"):
+        assert os.path.join("tidb_tpu_torch", rel) in named, rel
     from tidb_tpu_torch.executor import supervisor
     from tidb_tpu_torch.ops import residency
     from tidb_tpu_torch.utils import backoff
     assert residency.log.name == "tidb_tpu_torch.residency"
     assert supervisor.log.name == "tidb_tpu_torch.supervisor"
     assert backoff.log.name == "tidb_tpu_torch.backoff"
+
+
+#: the modules of the durable store, the fleet and BR
+FLEET_MODULES = ("kv/shared_store.py", "fabric/coord_net.py",
+                 "fabric/dedup.py", "fabric/client.py", "fabric/worker.py",
+                 "fabric/fleet.py", "fabric/blob.py", "fabric/region.py",
+                 "br_storage.py", "br.py")
+
+
+def test_fleet_modules_are_the_ports(tmp_path):
+    """The ten modules exist, import neither JAX nor the reference, and
+    the fleet spawns the port's worker and compile server under the
+    port's own segment and run-directory prefixes."""
+    for rel in FLEET_MODULES:
+        assert os.path.join(PORT, rel) in _port_sources(), rel
+    proc = _run(textwrap.dedent("""
+        import os, sys, tempfile
+        from tidb_tpu_torch import br, br_storage
+        from tidb_tpu_torch.fabric import (blob, client, coord_net, dedup,
+                                           fleet, region, worker)
+        from tidb_tpu_torch.fabric.coord import Coordinator
+        from tidb_tpu_torch.kv import shared_store
+        d = tempfile.mkdtemp(dir=%r)
+        c = Coordinator.create(os.path.join(d, "coord.json"), nslots=2)
+        print("segment", c._shm.name)
+        c.unlink()
+        f = fleet.Fleet(2)
+        print("run_dir", os.path.basename(f.run_dir))
+        os.rmdir(f.run_dir)
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu")]
+    """ % str(tmp_path)))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "segment torchfab-" in proc.stdout
+    assert "run_dir torchfab-" in proc.stdout
+    with open(os.path.join(PORT, "fabric", "fleet.py")) as f:
+        text = f.read()
+    assert '"tidb_tpu_torch.fabric.worker"' in text
+    assert '"tidb_tpu_torch.fabric.compile_server"' in text
+    assert "tpufab-" not in text

@@ -2,8 +2,7 @@
 RANGE / LIST / HASH routing, pruning, partition DDL) against the
 reference's, on the CPU.
 
-Every case of tests/test_partition.py but the physical backup (the port
-has no ``br.py`` yet, ROADMAP queue 1) runs once in each package on the
+Every case of tests/test_partition.py runs once in each package on the
 same statements; each case records what the statements answered (rows,
 EXPLAIN text, or the error's code and message) and the port's record must
 equal the reference's.  The reference test's own assertions hold on both.
@@ -376,6 +375,31 @@ class TestPartitionTxn:
             tk.must_exec("commit")
             return before, _q(tk2, "select count(*) from h")
         assert _both(body) == ([("0",)], [("1",)])
+
+
+class TestPartitionBackup:
+    def test_physical_backup_restore_roundtrip(self, tmp_path):
+        import importlib
+
+        def body(x):
+            br = importlib.import_module(
+                x.kit_cls.__module__.split(".")[0] + ".br")
+            d = str(tmp_path / x.kit_cls.__module__.split(".")[0])
+            tk = x.kit()
+            tk.must_exec("""create table s (a int) partition by hash (a)
+                partitions 2""")
+            tk.must_exec("insert into s values (1),(2),(3),(4)")
+            meta = br.backup_database(tk.session, "test", d)
+            t = next(t for t in meta["tables"] if t["name"] == "s")
+            tk.must_exec("create database r2")
+            br.restore_database(tk.session, d, "r2")
+            out = [t["rows"], _q(tk, "select count(*) from r2.s"),
+                   _q(tk, "select a from r2.s order by a")]
+            # both tables remain independently writable (fresh physical ids)
+            tk.must_exec("insert into r2.s values (5)")
+            return out + [_q(tk, "select count(*) from test.s")]
+        assert _both(body) == [4, [("4",)], [("1",), ("2",), ("3",), ("4",)],
+                               [("4",)]]
 
 
 class TestPartitionAggDevicePath:

@@ -18,7 +18,10 @@ and compare their answers:
   reference benchmark (``bench.py gen_all``), seeded;
 * :func:`gen_tpch` / :func:`install_tpch` — all eight TPC-H-shaped tables
   of that generator, drawn as it draws them, with their DDL, the
-  ``nation`` / ``region`` rows and ANALYZE.
+  ``nation`` / ``region`` rows and ANALYZE;
+* :func:`fleet_seed` — the data a fleet's workers carry: those tables in
+  every worker, their KV half and a ledger written once through the
+  shared log.
 """
 
 from __future__ import annotations
@@ -312,11 +315,18 @@ def install_tpch(execute, domain, db: str, tables: dict,
 
     With `paged_root`, ``lineitem`` and ``orders`` go in as paged tables
     (:func:`install_paged_numpy`, files under ``paged_root/<table>``),
-    the other six as bulk tables."""
+    the other six as bulk tables.
+
+    Where the schema is there already (a fleet worker over a shared
+    durable store, which replays the schema, the ``nation`` / ``region``
+    rows and the statistics from the log), only the process-local bulk
+    installs run and the statistics are loaded, as ``gen_all`` does."""
     execute(f"create database if not exists {db}")
     execute(f"use {db}")
-    for ddl in TPCH_DDL:
-        execute(ddl)
+    fresh = not domain.infoschema().has_table(db, "lineitem")
+    if fresh:
+        for ddl in TPCH_DDL:
+            execute(ddl)
     for name in TPCH_TABLES:
         if name in tables:
             data, n = tables[name]
@@ -325,6 +335,9 @@ def install_tpch(execute, domain, db: str, tables: dict,
                                     os.path.join(paged_root, name))
             else:
                 install_bulk_numpy(domain, db, name, data, n)
+    if not fresh:
+        domain.load_stats()
+        return
     for i, (nm, rk) in enumerate(NATIONS):
         execute(f"insert into nation values ({i}, '{nm}', {rk})")
     for i, r in enumerate(REGIONS):
@@ -332,3 +345,43 @@ def install_tpch(execute, domain, db: str, tables: dict,
     if analyze:
         for t in TPCH_TABLES:
             execute(f"analyze table {t}")
+
+
+#: the fleet hook's scale factor and lineitem seed (a worker's
+#: environment; Fleet(..., env_extra={FLEET_SF_ENV: "1"}))
+FLEET_SF_ENV = "TIDB_TPU_TORCH_FLEET_SF"
+FLEET_SEED_ENV = "TIDB_TPU_TORCH_FLEET_SEED"
+#: the fleet hook's KV-backed ledger: accounts, branches, seed balance
+LEDGER_ACCTS = 1024
+LEDGER_BRANCHES = 8
+LEDGER_SEED_BAL = 1000
+
+
+def fleet_seed(domain, seeded: bool = False):
+    """Fleet init hook (``Fleet(init="tidb_tpu_torch.carry:fleet_seed")``,
+    the counterpart of ``bench_serve.py _fabric_seed``): the TPC-H tables
+    of :func:`gen_tpch` at ``$TIDB_TPU_TORCH_FLEET_SF`` (default 0.002),
+    lineitem from ``$TIDB_TPU_TORCH_FLEET_SEED`` (default 42) and the
+    rest from seed 7, in database ``tpch``, and the ledger
+    ``test.ledger (acct, branch, bal)``.
+
+    The bulk-installed columnar caches are process-local, so every
+    worker installs the tables, and every worker holds the same columns:
+    the fleet's dedup keys hash a fragment's data.  The KV half (the
+    schema, ``nation`` / ``region``, the statistics and the ledger) is
+    written once, by the worker that is not `seeded`; the others replay
+    it from the shared log."""
+    from .session import new_session
+    sf = float(os.environ.get(FLEET_SF_ENV) or "0.002")
+    seed = int(os.environ.get(FLEET_SEED_ENV) or "42")
+    s = new_session(domain)
+    install_tpch(s.execute, domain, "tpch", gen_tpch(sf, seed, 7))
+    if seeded:
+        return
+    s.execute("use test")
+    s.execute("create table ledger (acct int primary key, branch int, "
+              "bal bigint)")
+    for lo in range(0, LEDGER_ACCTS, 256):
+        s.execute("insert into ledger values " + ",".join(
+            f"({a}, {a % LEDGER_BRANCHES}, {LEDGER_SEED_BAL})"
+            for a in range(lo + 1, min(lo + 256, LEDGER_ACCTS) + 1)))

@@ -135,8 +135,15 @@ class DDLWorker:
         Fleet: the drain holds the segment-leased DDL owner cell,
         renewed per job — a lost lease aborts the drain loudly (the
         new owner re-drives the queue; steps are re-entrant) instead
-        of letting two owners interleave one state machine."""
+        of letting two owners interleave one state machine.
+
+        An empty queue returns before the claim: the owner cell belongs
+        to the process's active segment, and a worker whose own domain
+        has nothing to do (an idle domain, or one outside the fleet)
+        must not take it from the domain that does."""
         from .ddl import ddl_lease_heartbeat, ddl_owner_lease
+        if self._peek() is None:
+            return
         with self.domain.ddl_lock, ddl_owner_lease() as epoch:
             while True:
                 if not ddl_lease_heartbeat(epoch):

@@ -11,28 +11,26 @@ device and the shared compile artifacts.
 
 The pieces:
 
-* :mod:`~tidb_tpu.fabric.fleet` — the parent supervisor: spawn N
+* :mod:`~tidb_tpu_torch.fabric.fleet` — the parent supervisor: spawn N
   workers, restart-on-crash with backoff, drain-on-shutdown.
-* :mod:`~tidb_tpu.fabric.worker` — one serving process: Domain + wire
+* :mod:`~tidb_tpu_torch.fabric.worker` — one serving process: Domain + wire
   listener + fleet-unique connection ids + lease heartbeat.
-* :mod:`~tidb_tpu.fabric.coord` — the shared-memory coordination
+* :mod:`~tidb_tpu_torch.fabric.coord` — the shared-memory coordination
   segment (``multiprocessing.shared_memory`` + a lease-stamped
   coordinator file): fleet-wide WFQ virtual clocks, per-tenant running
   caps and HBM charges, fragment-dedup slots, crash-lease reclaim.
-* :mod:`~tidb_tpu.fabric.dedup` — result-identical fragment dedup:
+* :mod:`~tidb_tpu_torch.fabric.dedup` — result-identical fragment dedup:
   identical concurrent ``(plan sig, data sig, bucket shape)`` fragments
   anywhere in the fleet dispatch ONE device call; the result ships back
   through a per-fragment mmap page.
-* :mod:`~tidb_tpu.fabric.compile_server` / ``compile_client`` — the
-  separated compile service: one subprocess per host owns the expensive
-  XLA compiles behind a length-prefixed socket protocol; workers trace
-  locally (cheap), the server compiles into the shared host-fingerprinted
-  AOT cache, and serialized ``jax.export`` artifacts let a SECOND worker
-  serve the fragment with zero new local traces.
-* :mod:`~tidb_tpu.fabric.state` — this process's fabric identity (slot,
+* :mod:`~tidb_tpu_torch.fabric.compile_server` / ``compile_client`` — the
+  separated compile service's seat; the port's server is still a
+  stand-in that exits 2 (ROADMAP queue 1, the compile layer), so a
+  fleet runs with ``compile_server=False``.
+* :mod:`~tidb_tpu_torch.fabric.state` — this process's fabric identity (slot,
   coordinator handle, compile-server address) + the ``fabric_*`` gauges.
-* :mod:`~tidb_tpu.fabric.region` / :mod:`~tidb_tpu.fabric.blob` /
-  :mod:`~tidb_tpu.fabric.coord_net` — the multi-host region layer:
+* :mod:`~tidb_tpu_torch.fabric.region` / :mod:`~tidb_tpu_torch.fabric.blob` /
+  :mod:`~tidb_tpu_torch.fabric.coord_net` — the multi-host region layer:
   the keyspace sharded into N regions, each with its own
   WAL, epoch-fenced lease cells, and blob-store replication so a HOST
   loss is a region failover (a survivor restores checkpoint + tail and
@@ -45,11 +43,11 @@ fenced keyspace shards + blob failover) → FABRIC (process fleet +
 dedup) → ADMISSION (fleet-coordinated WFQ) → COMPILE SERVICE →
 SUPERVISOR deadline → BREAKER → RESIDENCY (fleet-aware tenant shares).
 
-Confinement: direct ``multiprocessing.shared_memory`` use is lint-pinned
-to this package (tidb_tpu/lint/rules/confinement.py), and so is raw
-``socket`` use for coordination (the MySQL wire protocol in ``server/``
-is the one other legitimate socket owner) — every other layer
-coordinates through :mod:`state`'s typed hooks.
+Confinement: direct ``multiprocessing.shared_memory`` use belongs to
+this package, and so does raw ``socket`` use for coordination (the
+MySQL wire protocol in ``server/`` is the one other legitimate socket
+owner) — every other layer coordinates through :mod:`state`'s typed
+hooks.
 """
 
 from __future__ import annotations

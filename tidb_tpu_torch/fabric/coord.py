@@ -245,7 +245,7 @@ class Coordinator:
         if pages_dir is None:
             pages_dir = path + ".pages"
         os.makedirs(pages_dir, exist_ok=True)
-        name = f"tpufab-{os.getpid()}-{secrets.token_hex(4)}"
+        name = f"torchfab-{os.getpid()}-{secrets.token_hex(4)}"
         meta = {"segment": name, "nslots": nslots, "ntenants": ntenants,
                 "ndedup": ndedup, "nlocks": nlocks, "nregions": nregions,
                 "ntablevers": ntablevers, "nperf": nperf,

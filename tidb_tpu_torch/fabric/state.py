@@ -1,7 +1,7 @@
 """This process's fabric identity + the ``fabric_*`` gauges.
 
 A worker process calls :func:`activate` once at boot (fabric/worker.py)
-with its slot id and an attached :class:`~tidb_tpu.fabric.coord.Coordinator`;
+with its slot id and an attached :class:`~tidb_tpu_torch.fabric.coord.Coordinator`;
 that installs the cross-process hooks into the in-process layers:
 
 * the admission scheduler's fleet hook (fleet-wide per-tenant running
