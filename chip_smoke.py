@@ -33,6 +33,14 @@ Phases, each fatal on failure:
    call, host issue ms, device ms by kernel, the runtime's launches,
    copies and memsets a call (it fails past the wrapper's
    ``launch_plan``, one launch, on a copy or a memset) and the bound;
+1e. ``[first-launch]`` — ``python3 chip_smoke.py --first-launch`` in a
+   process of its own that has run nothing on the card: the CUDA
+   context's and the kernel library's load time, then every kernel's
+   wrapper (K2, K1, K4, K5a, K5b, the fold, K10, kernel A's hash and
+   partition, kernel B) called twice on small seeded tensors, each
+   call's ms (the first pays the kernel's module load, its attributes,
+   workspaces and the allocator's growth: what a background warm takes
+   off the query path);
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes: K2/K3 the expression VM on the Q1, Q6 and top-N
    programs, (K2's LOADG) on Q3's post-join program and on a program of
@@ -63,6 +71,17 @@ Phases, each fatal on failure:
    equal the host engine's, with the same result types (every cell exact
    but in DOUBLE or FLOAT columns, which compare within rtol 1e-9 /
    atol 1e-12);
+4b. ``[compile]`` — the compile layer (``executor/compile_service.py``)
+   on the same session: the pipe cache dropped, the signature index off
+   and ``tidb_compile_async = ON``, Q1 and Q3 must be served by the host
+   engine (rows equal phase 4's host rows, compile mode
+   ``async_pending``) while the background workers build and warm their
+   pipelines on a CUDA stream of their own; after ``wait_idle`` the same
+   queries must run on the card with equal rows, no new trace on the
+   query's thread, compile mode ``bg``, their kernels launched and
+   ``engine:tpu`` with ``compile_mode:bg`` in EXPLAIN ANALYZE; then
+   ``ADMIN COMPILE``'s submitted / prewarmed / failed counts (none
+   failed) and each ladder rung's bytes and ms;
 5. ``[mpp]`` — the MPP engine (``tidb_executor_engine = 'tpu-mpp'``) on
    a local mesh of ``tidb_mpp_devices = 8`` logical shards on the card,
    on the same SF1 tables: one warm-up of Q1, Q6, Q3, Q5, Q9, Q18 and the
@@ -142,8 +161,9 @@ Phases, each fatal on failure:
    in-process ms (phase 4 or 6) and its launches;
 6c. ``[fleet]`` — ``fabric.fleet.Fleet``: two ``python -m
    tidb_tpu_torch.fabric.worker`` processes on the card
-   (``TIDB_TPU_TORCH_DEVICE=cuda``, no compile server) over one durable
-   log in a temporary run directory, each with
+   (``TIDB_TPU_TORCH_DEVICE=cuda``) and ``Fleet``'s default compile
+   server (``python -m tidb_tpu_torch.fabric.compile_server``) over one
+   durable log in a temporary run directory, each worker with
    ``tidb_device_mem_budget`` at 0.3 of the card's free memory, seeded
    by ``carry.fleet_seed`` (the SF1 tables from --seed and 7 in every
    worker; their schema, statistics and ``test.ledger`` written once
@@ -166,7 +186,14 @@ Phases, each fatal on failure:
    workers equal to the original; each drained worker must have
    launched K2 and K1, the workers together K4, K5a and K5b (their drain
    summaries' ``launches``), and no worker may rebuild the kernel
-   library; the drain summaries' log gauges and dedup counts;
+   library or run nvcc (``kernel_build``); the drain summaries' log
+   gauges, dedup counts and ``compile_persist_hits``; the compile
+   server's ``stats`` after the serving round and the cold restart
+   (fragment signatures recorded, dedups, library builds and hits; it
+   must never initialise CUDA); at the run's very end, while it is under
+   ``LIBRARY_BUILD_BEFORE_S``, one library build owned by a compile
+   server process into a fresh artifact directory, timed, its bytes
+   fetched against their sha256;
 7. ``[paged-sf1]`` — the same SF1 ``lineitem`` and ``orders`` a second
    time, as paged (memmap) tables in a temporary directory removed at
    exit (``carry.install_tpch``'s paged option, db ``tpch_paged``, the
@@ -407,6 +434,14 @@ WINDOW_QUERIES = (("w1", W1), ("w2", W2), ("w3", W3), ("w4", W4))
 
 class SmokeFailure(Exception):
     pass
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
 
 
 def fail(msg):
@@ -1549,6 +1584,284 @@ def run_counted(s, name, sql, counters, need, n_rows, index_builds):
     log(f"[main] {name}: {dt * 1e3:.3f} ms on the device engine, "
         f"{n_rows / dt:,.0f} lineitem rows/s, launches {moved}{note}")
     return res, moved, dt * 1e3
+
+
+# -- the compile layer: async flip, ADMIN COMPILE, first launches ------------
+
+#: the queries of ``[compile]``: a scan aggregate and a join fragment
+COMPILE_QUERIES = ("q1", "q3")
+
+
+def compile_modes(before, after):
+    """The compile modes that moved on this thread between two
+    ``pipe_cache_stats(thread_local=True)`` reads."""
+    return {k[5:]: after[k] - before[k] for k in after
+            if k.startswith("mode_") and after[k] != before[k]}
+
+
+def phase_compile(s, host_res, card):
+    """``[compile]`` — the compile layer on the SF1 session after
+    ``[main]``: under ``tidb_compile_async = ON`` with the pipe cache
+    dropped, Q1 and Q3 are served by the host engine (rows equal phase
+    4's host rows, compile mode ``async_pending``) while the background
+    workers build and warm their pipelines on a stream of their own;
+    after ``wait_idle`` the same queries run on the card (rows equal, no
+    new trace on the query's thread, compile mode ``bg``, their kernels
+    launched, ``engine:tpu`` and ``compile_mode:bg`` in EXPLAIN
+    ANALYZE); then ``ADMIN COMPILE`` warms the next two row buckets of
+    each hot recipe, each rung's bytes and seconds logged (a rung past
+    the free share of the device budget is skipped and counted).  The
+    signature index is off for the phase, so the earlier phases' builds
+    cannot make the cold obtains inline."""
+    from tidb_tpu_torch.executor import compile_service as cs
+    from tidb_tpu_torch.executor import device_exec
+    from tidb_tpu_torch.ops.kernels import (expr_vm, groupby_agg,
+                                            join_expand, join_probe)
+    counters = {"expr_vm": expr_vm.LAUNCHES,
+                "groupby_agg": groupby_agg.LAUNCHES,
+                "join_probe": join_probe.LAUNCHES,
+                "join_expand": join_expand.LAUNCHES}
+    need = {"q1": ["expr_vm", "groupby_agg"],
+            "q3": ["expr_vm", "groupby_agg", "join_probe", "join_expand"]}
+    prev_index = os.environ.get("TIDB_TPU_COMPILE_INDEX")
+    os.environ["TIDB_TPU_COMPILE_INDEX"] = "off"
+    stats = device_exec.pipe_cache_stats
+    engine = s.execute("select @@tidb_executor_engine")[-1].rows[0][0]
+    s.execute("set @@tidb_executor_engine = 'tpu'")
+    try:
+        if not cs.wait_idle(60.0):
+            fail("[compile] a background job of an earlier phase is stuck")
+        with device_exec._PIPE_LOCK:
+            dropped = len(device_exec._PIPE_CACHE)
+            device_exec._PIPE_CACHE.clear()
+        cs.reset_for_tests()
+        log(f"[compile] card {card}; pipe cache dropped ({dropped} "
+            "entries), signature index off, tidb_compile_async = ON")
+        s.execute("set @@tidb_compile_async = 'ON'")
+        snap0 = cs.snapshot()
+        for name in COMPILE_QUERIES:
+            sql = dict(QUERIES)[name]
+            st0 = stats(thread_local=True)
+            t0 = time.perf_counter()
+            res = s.execute(sql)[-1]
+            dt = (time.perf_counter() - t0) * 1e3
+            st1 = stats(thread_local=True)
+            modes = compile_modes(st0, st1)
+            if not rows_equal(res, host_res[name]):
+                fail(f"[compile] {name}: host-served rows differ from the "
+                     "host engine's")
+            if not modes.get("async_pending"):
+                fail(f"[compile] {name}: compile mode {modes}, not "
+                     "async_pending (the cold miss did not defer)")
+            log(f"[compile] {name} cold under async: {dt:.3f} ms, served "
+                f"by the host engine, rows equal; compile modes {modes}; "
+                f"traces on this thread {st1['traces'] - st0['traces']}")
+        t0 = time.perf_counter()
+        if not cs.wait_idle(300.0):
+            fail(f"[compile] background builds did not finish: "
+                 f"{cs.snapshot()}")
+        snap1 = cs.snapshot()
+        log(f"[compile] wait_idle {(time.perf_counter() - t0) * 1e3:.3f} "
+            f"ms; bg submitted +{snap1['bg_submitted'] - snap0['bg_submitted']}"
+            f", completed +{snap1['bg_completed'] - snap0['bg_completed']}, "
+            f"failed +{snap1['bg_failed'] - snap0['bg_failed']}, bg seconds "
+            f"{snap1['compile_bg_seconds']}; warms "
+            + "; ".join(f"{w['shape']} {w['bytes']} bytes "
+                        f"{w['s'] * 1e3:.3f} ms" for w in cs.WARM_LOG))
+        if snap1["bg_completed"] - snap0["bg_completed"] < len(
+                COMPILE_QUERIES) or snap1["bg_failed"] != snap0["bg_failed"]:
+            fail(f"[compile] background builds: {snap1}")
+        for name in COMPILE_QUERIES:
+            sql = dict(QUERIES)[name]
+            before = {k: c[0] for k, c in counters.items()}
+            st0 = stats(thread_local=True)
+            t0 = time.perf_counter()
+            res = s.execute(sql)[-1]
+            dt = (time.perf_counter() - t0) * 1e3
+            st1 = stats(thread_local=True)
+            moved = {k: c[0] - before[k] for k, c in counters.items()}
+            modes = compile_modes(st0, st1)
+            traces = st1["traces"] - st0["traces"]
+            if not rows_equal(res, host_res[name]):
+                fail(f"[compile] {name} after the flip: rows differ")
+            if traces:
+                fail(f"[compile] {name} after the flip: {traces} new traces")
+            if not modes.get("bg") or modes.get("async_pending"):
+                fail(f"[compile] {name} after the flip: compile modes "
+                     f"{modes}, not bg")
+            for k in need[name]:
+                if moved[k] <= 0:
+                    fail(f"[compile] {name} after the flip: kernel {k} was "
+                         "not launched")
+            rows = s.execute("explain analyze " + sql)[-1].rows
+            aggs = [" ".join(str(x) for x in r) for r in rows
+                    if "HashAgg" in str(r[0])]
+            if not (aggs and all("engine:tpu" in a for a in aggs)
+                    and any("compile_mode:bg" in a for a in aggs)):
+                fail(f"[compile] {name}: EXPLAIN ANALYZE after the flip "
+                     f"does not show engine:tpu and compile_mode:bg: {aggs}")
+            log(f"[compile] {name} after wait_idle: {dt:.3f} ms on "
+                f"engine:tpu, rows equal, 0 new traces, compile modes "
+                f"{modes}, launches {moved}; EXPLAIN ANALYZE engine:tpu, "
+                "compile_mode:bg")
+        s.execute("set @@tidb_compile_async = 'OFF'")
+        n_log = len(cs.WARM_LOG)
+        t0 = time.perf_counter()
+        rep = s.execute("admin compile")[-1].rows
+        dt = time.perf_counter() - t0
+        rungs = list(cs.WARM_LOG)[n_log:]
+        if not rep or int(rep[0][2]):
+            fail(f"[compile] ADMIN COMPILE: {rep}")
+        log(f"[compile] ADMIN COMPILE in {dt:.3f}s: submitted "
+            f"{rep[0][0]}, prewarmed {rep[0][1]}, failed {rep[0][2]}; "
+            f"warm totals {cs.WARM}")
+        for w in rungs:
+            log(f"[compile] rung {w['shape']} bucket {w['bucket']}: "
+                f"{w['bytes']} bytes, {w['s'] * 1e3:.3f} ms"
+                + (f", skipped (free share {w['free_share']} bytes)"
+                   if w["skipped"] else ""))
+        if not cs.verify_drained()["ok"]:
+            fail(f"[compile] jobs leaked: {cs.verify_drained()}")
+    finally:
+        s.execute("set @@tidb_compile_async = 'OFF'")
+        s.execute(f"set @@tidb_executor_engine = '{engine}'")
+        if prev_index is None:
+            os.environ.pop("TIDB_TPU_COMPILE_INDEX", None)
+        else:
+            os.environ["TIDB_TPU_COMPILE_INDEX"] = prev_index
+
+
+def first_launch_calls(seed, dev):
+    """One call of every kernel's wrapper on small seeded tensors on the
+    card, in launch order: name -> a zero-argument call."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.executor.join_index import build_join_index
+    from tidb_tpu_torch.ops.kernels import (expr_vm, groupby_agg,
+                                            join_expand, join_probe,
+                                            merge_states, radix_exchange,
+                                            shuffle_join, sort_topk,
+                                            window_scan)
+    from tidb_tpu_torch.sqltypes import TYPE_LONGLONG, FieldType
+    from tidb_tpu_torch.utils.chunk import Column
+    rng = np.random.default_rng(seed)
+    n, nb = 1 << 12, 1 << 10
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ki = up(rng.integers(0, 100, n))
+    kf = up(rng.standard_normal(n).round(1))
+    nul = up(rng.random(n) < 0.05)
+    none = up(np.zeros(n, bool))
+    mask = up(rng.random(n) < 0.9)
+    prog = expr_vm.Program.build(
+        [expr_vm.cmp("lt", expr_vm.load(1, "i"), expr_vm.const(7, "i"))],
+        [expr_vm.load(0, "i")], [(expr_vm.load(2, "f"), "raw")])
+    vm_in = [(ki, nul), (up(rng.integers(0, 11, n)), none), (kf, nul)]
+    pack = ((7, 0),)
+    ops = ("sum_i", "sum_f")
+    states = []
+
+    def k1():
+        states.append(groupby_agg.groupby_agg(
+            (ki,), (nul,), (ki, kf), (nul, nul), mask, 1, ops, 1 << 9,
+            pack))
+    bkeys = rng.permutation(nb) * 3 + 5
+    idx = build_join_index([Column(FieldType(tp=TYPE_LONGLONG),
+                                   bkeys.astype(np.int64),
+                                   np.zeros(nb, bool))])
+    a0 = up(idx.starts if idx.kind == "dense" else idx.sorted_keys)
+    a1 = up(idx.rows)
+    pk = up(rng.integers(0, 3 * nb + 10, n))
+    cnt = up(rng.integers(0, 4, n))
+    pos0 = up(rng.integers(0, nb - 8, n))
+    perm = up(rng.permutation(nb).astype(np.int32))
+    wpart = [(up(rng.integers(0, 40, n)), nul)]
+    worder = [(up(rng.integers(-3, 4, n)), none)]
+    wargs = [(ki, nul), (kf, nul)]
+    funcs = [("row_number", None), ("rank", None), ("sum", 0), ("max", 1)]
+    widx = sort_topk.window_order([wpart[0][0], worder[0][0]],
+                                  [wpart[0][1], worder[0][1]],
+                                  [False, False], n, n - 7)
+    hashed = []
+
+    def rx_hash():
+        hashed[:] = radix_exchange.dest_hash([ki], "single", valid=mask)
+    bv = up(rng.integers(-10**9, 10**9, nb))
+    return {
+        "K2 expr_vm": lambda: expr_vm.run(prog, vm_in, n, n - 3, dev),
+        "K1 groupby_agg": k1,
+        "K4 sort_topk": lambda: sort_topk.sort_indices(
+            [ki, kf], [nul, none], [True, False], [False, True], n, n, 10),
+        "K5a join_probe": lambda: join_probe.probe(
+            [pk], [None], mask, idx.packs, a0, a1, idx.n_valid,
+            layout=idx.kind, mode="count", kind="inner",
+            dense_span=idx.span),
+        "K5b join_expand": lambda: join_expand.expand(
+            cnt, pos0, mask, perm, nb, None, 1 << 14),
+        "K8/K9 merge_states": lambda: merge_states.merge(
+            states[-2:], 1, ops, 1 << 9, pack),
+        "K10 window_scan": lambda: window_scan.run(
+            n, n - 7, widx, wpart, worder, wargs, funcs, dev),
+        "A radix_exchange rx_hash": rx_hash,
+        "A radix_exchange": lambda: radix_exchange.partition(
+            hashed[0], hashed[1], 8, 4, 1 << 10, [ki, kf]),
+        "B shuffle_join": lambda: shuffle_join.join_sum(
+            bv, up(rng.permutation(nb)), pos0, cnt, ki, mask),
+    }
+
+
+def first_launch(seed):
+    """``--first-launch``: in a process that has run nothing on the card,
+    the CUDA context, the kernel library's load, then each kernel's
+    wrapper twice on small tensors — the first call pays the kernel's
+    module load, its attributes, workspaces and the allocator's growth;
+    the second is what a warm pipeline pays.  The difference is what a
+    background warm takes off the query path."""
+    import torch
+    from tidb_tpu_torch.ops.kernels import build
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    ctx_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    build.lib()
+    lib_ms = (time.perf_counter() - t0) * 1e3
+    print(f"CUDA context {ctx_ms:.3f} ms; kernel library load "
+          f"{lib_ms:.3f} ms (nvcc runs in this process "
+          f"{build.STATS['nvcc_runs']})")
+    out = {"context_ms": ctx_ms, "library_ms": lib_ms, "kernels": {}}
+    calls = first_launch_calls(seed, dev)
+    for name, call in calls.items():
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["kernels"][name] = ms
+        print(f"{name}: first launch {ms[0]:.3f} ms, second {ms[1]:.3f} ms")
+    print(json.dumps(out))
+
+
+def phase_first_launch(args):
+    """``[first-launch]`` — this script's ``--first-launch`` mode in a
+    child process; its lines are relayed, and its failure fails the
+    run."""
+    try:
+        r = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--first-launch",
+             "--seed", str(args.seed)], capture_output=True, text=True,
+            timeout=300, cwd=HERE)
+    except subprocess.TimeoutExpired:
+        fail("first-launch: no end within 300 s")
+    for line in r.stdout.splitlines():
+        log(f"[first-launch] {line}")
+    if r.returncode:
+        fail(f"first-launch: exit {r.returncode}: {r.stderr[-3000:]}")
 
 
 # -- the MPP mesh path: K11/K12 on a local mesh of 8 shards -------------------
@@ -3338,9 +3651,8 @@ def fleet_boot(label, run_dir, sysvars, env):
     fleet is shut down)."""
     import threading
     from tidb_tpu_torch.fabric.fleet import Fleet
-    fleet = Fleet(FLEET_WORKERS, init=FLEET_INIT, compile_server=False,
-                  durable=True, sysvars=sysvars, env_extra=env,
-                  run_dir=run_dir)
+    fleet = Fleet(FLEET_WORKERS, init=FLEET_INIT, durable=True,
+                  sysvars=sysvars, env_extra=env, run_dir=run_dir)
     err = []
 
     def start():
@@ -3369,8 +3681,82 @@ def fleet_boot(label, run_dir, sysvars, env):
     log(f"[fleet] {label}: {FLEET_WORKERS} workers up in {boot:.1f}s; "
         + "; ".join(f"slot {i} ready at {ready[i][0]:.1f}s, "
                     f"{ready[i][1]:.1f}s after its spawn (pid "
-                    f"{fleet.worker_pid(i)})" for i in sorted(ready)))
+                    f"{fleet.worker_pid(i)})" for i in sorted(ready))
+        + f"; compile server pid {fleet.compile_server_proc.pid}")
     return fleet, boot
+
+
+def compile_server_stats(fleet, label):
+    """Log the fleet's compile server's ``stats``; the run fails if the
+    server initialised CUDA or answered a request with an error."""
+    from tidb_tpu_torch.fabric.compile_client import CompileClient
+    st = CompileClient(fleet.compile_server_addr).request({"op": "stats"})
+    log(f"[fleet] compile server ({label}): fragment signatures recorded "
+        f"{st['compiles']}, dedup {st['dedup_served']}, library builds "
+        f"{st['builds']} ({st['build_s']:.3f}s), library artifact hits "
+        f"{st['artifact_hits']}, fetches {st['fetches']}, errors "
+        f"{st['errors']}, cuda_initialized {st['cuda_initialized']}")
+    if st["cuda_initialized"] or st["errors"]:
+        fail(f"[fleet] compile server ({label}): {st}")
+    return st
+
+
+#: the run's elapsed seconds before which the server-owned library build
+#: runs at its end (a build took 12-22 s on the card; the run's limit is
+#: 1200 s)
+LIBRARY_BUILD_BEFORE_S = 975.0
+
+
+def server_library_build(card):
+    """One library build owned by a compile server process, into a
+    fresh artifact directory: the nvcc build each worker of a fleet on a
+    fresh tree would otherwise pay; the library's bytes come back by
+    ``fetch`` and match their sha256."""
+    import hashlib
+    import shutil
+    import tempfile
+    from tidb_tpu_torch.fabric.compile_client import CompileClient
+    from tidb_tpu_torch.ops.kernels import build as kbuild
+    d = tempfile.mkdtemp(prefix="chip-smoke-artifacts-")
+    sock = os.path.join(d, "compile.sock")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tidb_tpu_torch.fabric.compile_server",
+         "--socket", sock],
+        env={**os.environ, "TIDB_TPU_COMPILE_ARTIFACTS":
+             os.path.join(d, "art"), "PYTHONPATH": HERE},
+        stdout=subprocess.PIPE, text=True, cwd=HERE)
+    try:
+        ready = json.loads(proc.stdout.readline() or "{}")
+        if ready.get("metric") != "compile_server_ready":
+            fail(f"[fleet] compile server did not start: {ready}")
+        cli = CompileClient(sock)
+        t0 = time.perf_counter()
+        resp = cli.request({"op": "compile", "kind": "library",
+                            "digest": kbuild._digest()})
+        wall = time.perf_counter() - t0
+        got = cli.request({"op": "fetch", "key_hash": kbuild._digest()})
+        blob = bytes(got["module"])
+        if hashlib.sha256(blob).hexdigest() != got["sha256"]:
+            fail("[fleet] the fetched library does not match its sha256")
+        again = cli.request({"op": "compile", "kind": "library",
+                             "digest": kbuild._digest()})
+        st = cli.request({"op": "stats"})
+        log(f"[fleet] server-owned library build into a fresh artifact "
+            f"directory: {resp['build_s']:.3f}s in the server ({wall:.3f}s"
+            f" the request), {len(blob)} bytes fetched, sha256 equal; a "
+            f"second request built {again['built']}; builds {st['builds']}, "
+            f"artifact hits {st['artifact_hits']}, cuda_initialized "
+            f"{st['cuda_initialized']} ({card})")
+        if not resp["built"] or again["built"] or st["cuda_initialized"]:
+            fail(f"[fleet] server-owned library build: {resp} {again} {st}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def fleet_resident_bytes(fleet):
@@ -3634,6 +4020,10 @@ def fleet_phase(host_res, server_ms, seed, report):
         log(f"[fleet] device-resident bytes charged to the segment by slot: "
             f"{fleet_resident_bytes(fleet)}; card memory free "
             f"{torch.cuda.mem_get_info()[0] / 1e9:.3f} GB")
+        srv_stats = compile_server_stats(fleet, "after Q1, Q3 and Q18")
+        if not srv_stats["compiles"]:
+            fail("[fleet] no worker recorded a fragment signature through "
+                 "the compile server")
         # -- the fleet's sharing: the result cache and dedup --------------
         q1 = dict(QUERIES)["q1"]
         conns = [fleet_client(fleet, s, cache=True)
@@ -3767,6 +4157,7 @@ def fleet_phase(host_res, server_ms, seed, report):
                 c.close()
         log("[fleet] cold restart: Q1's rows equal on both workers, "
             "engine:tpu")
+        compile_server_stats(fleet, "cold restart")
         # -- BACKUP / RESTORE -------------------------------------------------
         for mode in ("logical", "physical"):
             d = os.path.join(run_dir, f"br-{mode}")
@@ -3840,6 +4231,17 @@ def fleet_phase(host_res, server_ms, seed, report):
         if not (s["launches"]["expr_vm"] and s["launches"]["groupby_agg"]):
             fail(f"[fleet] slot {s['slot']} (pid {s['pid']}) launched no K1 "
                  f"or K2 on the card: {s['launches']}")
+        if s["kernel_build"]["nvcc_runs"]:
+            fail(f"[fleet] slot {s['slot']} (pid {s['pid']}) ran nvcc: "
+                 f"{s['kernel_build']}")
+        log(f"[fleet] slot {s['slot']} pid {s['pid']}: nvcc runs "
+            f"{s['kernel_build']['nvcc_runs']}, library from the server "
+            f"{s['kernel_build']['from_server']}; compile_persist_hits "
+            f"{s['compile'].get('compile_persist_hits', 0)}; signatures "
+            f"recorded through the server "
+            f"{s['fabric']['fabric_remote_compiles']}, known there "
+            f"{s['fabric']['fabric_artifact_hits']}, remote errors "
+            f"{s['fabric']['fabric_remote_errors']}")
         log(f"[fleet] drain summary slot {s['slot']} pid {s['pid']}: "
             f"launches {s['launches']}; wal {s.get('wal')}; dedup leads "
             f"{s['fabric']['fabric_dedup_leads']} hits "
@@ -4745,6 +5147,9 @@ def main(argv=None) -> int:
     ap.add_argument("--exchange-split", action="store_true",
                     help="only the [exchange-split] calls of kernels A "
                          "and B (phase 1d), in this process")
+    ap.add_argument("--first-launch", action="store_true",
+                    help="only the [first-launch] calls (phase 1e), in "
+                         "this process")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "tidb_tpu_torch")):
         print("chip_smoke: the tidb_tpu_torch package is not beside this "
@@ -4759,12 +5164,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from tidb_tpu_torch.ops import device as pdev
     pdev.set_device("cuda")
-    if args.fold_split or args.exchange_split:
+    if args.fold_split or args.exchange_split or args.first_launch:
         try:
             if args.fold_split:
                 fold_split(args.seed)
-            else:
+            elif args.exchange_split:
                 exchange_split(args.seed)
+            else:
+                first_launch(args.seed)
         except SmokeFailure as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -4857,6 +5264,8 @@ def main(argv=None) -> int:
         phase_done("fold split")
         phase_exchange_split(args, report)
         phase_done("exchange split")
+        phase_first_launch(args)
+        phase_done("first launch")
         captured, joins = {}, {}
         dom, s, n_rows, keys = phase_sql_setup(args, captured, joins)
         phase_done("sql set-up")
@@ -4872,6 +5281,8 @@ def main(argv=None) -> int:
         phase_done("kernels")
         host_res, main_ms = phase_main_path(dom, s, n_rows, report)
         phase_done("main path")
+        phase_compile(s, host_res, card_line())
+        phase_done("compile")
         phase_mpp(s, dom, host_res, mpp_keys, args.seed, report)
         del mpp_keys
         phase_done("mpp")
@@ -4894,6 +5305,15 @@ def main(argv=None) -> int:
         phase_done("hybrid")
         phase_mpp_sf10(s10, sf10_rows)
         phase_done("mpp-sf10")
+        # last, and only while the run is well inside its time limit: one
+        # library build owned by a compile server (~12-22 s)
+        if time.perf_counter() - t_all < LIBRARY_BUILD_BEFORE_S:
+            server_library_build(card_line())
+        else:
+            log(f"[fleet] server-owned library build skipped: the run is "
+                f"at {time.perf_counter() - t_all:.1f}s, past "
+                f"{LIBRARY_BUILD_BEFORE_S:.0f}s")
+        phase_done("library build")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -23,8 +23,9 @@ Beyond those:
 * a worker asked for ``cuda`` where no card is visible exits 1 with
   ``DeviceNotAvailable``'s message and prints no ready line, and
   ``Fleet.start`` raises;
-* ``Fleet(compile_server=True)`` fails at ``start`` (the port's compile
-  server is a stand-in that exits 2);
+* a fleet with its default compile server starts and answers: the
+  server records the workers' fragment signatures, never initialises
+  CUDA, and no worker runs nvcc;
 * a dedup result chunk whose columns hold device uploads pickles
   without a tensor;
 * the fleet's init hook (``carry.fleet_seed``) gives every worker the
@@ -49,6 +50,9 @@ import pytest
 from tidb_tpu_torch.fabric import slot_of_conn_id
 from tidb_tpu_torch.fabric.coord import Coordinator
 from torch_fleet_harness import CPU_ENV
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 
 @pytest.fixture()
@@ -708,22 +712,53 @@ class TestPortFleet:
         finally:
             fleet.shutdown()
 
-    def test_compile_server_fails_loudly(self, tmp_path, capfd):
-        """The port's compile server is a stand-in that exits 2: a fleet
-        that asks for it fails at start, before any worker spawns."""
+    def test_default_fleet_serves_through_its_compile_server(self,
+                                                            tmp_path):
+        """``Fleet``'s default spawns the port's compile server first; the
+        workers start, answer Q1 on the device engine as on the host
+        engine, and record the fragment's signature through the server
+        (one record, the second worker's a dedup).  The server never
+        initialises CUDA, and no worker runs nvcc."""
+        from tidb_tpu_torch.fabric.client import FleetClient
+        from tidb_tpu_torch.fabric.compile_client import CompileClient
         from tidb_tpu_torch.fabric.fleet import Fleet
-        fleet = Fleet(2, env_extra=CPU_ENV,
+        fleet = Fleet(2, init="tidb_tpu_torch.carry:fleet_seed",
+                      env_extra={**CPU_ENV, "TIDB_TPU_COMPILE_INDEX":
+                                 str(tmp_path / "idx")},
                       run_dir=str(tmp_path / "fleet"))
         assert fleet.with_compile_server
+        fleet.start(timeout_s=240.0)
         try:
-            with pytest.raises(RuntimeError,
-                               match="compile server failed to start"):
-                fleet.start(timeout_s=120.0)
-            assert fleet.compile_server_proc.wait(60) == 2
-            assert all(s.proc is None for s in fleet.slots)
+            assert fleet.compile_server_proc.poll() is None
+            assert fleet.compile_server_addr
+            got = []
+            for slot in range(2):
+                c = FleetClient(fleet.direct_port(slot))
+                try:
+                    c.must_exec("use tpch")
+                    c.must_exec("set tidb_result_cache = 'OFF'")
+                    c.must_exec("set tidb_executor_engine = 'tpu'")
+                    dev = c.must_query(Q1_SMALL)
+                    c.must_exec("set tidb_executor_engine = 'host'")
+                    assert c.must_query(Q1_SMALL) == dev
+                    got.append(dev)
+                finally:
+                    c.close()
+            assert got[0] == got[1]
+            st = CompileClient(fleet.compile_server_addr).request(
+                {"op": "stats"})
+            assert st["compiles"] >= 1 and st["dedup_served"] >= 1
+            assert st["errors"] == 0
+            assert st["cuda_initialized"] is False
+            assert os.listdir(tmp_path / "idx")
         finally:
-            fleet.shutdown()
-        assert "has no compile server yet" in capfd.readouterr().err
+            drained = fleet.shutdown()
+        assert drained and drained["ok"], drained
+        for s in fleet.slots:
+            assert s.summary["kernel_build"]["nvcc_runs"] == 0
+            assert s.summary["fabric"]["fabric_remote_errors"] == 0
+            assert (s.summary["fabric"]["fabric_remote_compiles"]
+                    + s.summary["fabric"]["fabric_artifact_hits"]) >= 1
 
     def test_dedup_page_carries_no_tensor(self, coord, tmp_path):
         """A leader's result chunk whose columns hold device uploads

@@ -10,10 +10,8 @@ engine's exactly; ``hybrid_join.STATS["hj_runs"]`` moved in the port (a
 row compare alone would pass if the port declined to its host engine);
 the first run's partition count and spilled-partition count equal the
 reference's; no spill set stays open and the residency ledger is
-consistent.  Not ported here: ``test_compile_pending_shifts_hostward``
-(the port builds its programs synchronously; ROADMAP queue 1, the
-compile layer); ``test_paged_leaf_on_mesh_within_budget`` runs in
-tests/test_torch_mpp_sql.py.
+consistent.  Not ported here: ``test_paged_leaf_on_mesh_within_budget``
+runs in tests/test_torch_mpp_sql.py.
 
 Beyond those: the radix split against the reference's MPP mix64 and
 radix-bucket destination fold, the host half's numpy fold against the
@@ -48,6 +46,9 @@ from tidb_tpu_torch.storage.paged import SpillSet, spill_outstanding
 from tidb_tpu_torch.testkit import TestKit as PortKit
 from tidb_tpu_torch.utils import backoff
 from tidb_tpu_torch.utils import failpoint as pfp
+from torch_dual import clear_compile_state, isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -251,6 +252,51 @@ class TestSpillParity:
         assert ran == 1
         assert 0 < phj.STATS["hj_spilled_partitions"] \
             < phj.STATS["hj_partitions"]
+
+
+class TestCompilePending:
+    def test_compile_pending_shifts_hostward(self, monkeypatch):
+        """Async compile ON + cold cache: the first run shifts the whole
+        split host-ward (still exact) while the program builds; once
+        ready, the device takes its share back — in both packages, with
+        the same splits."""
+        monkeypatch.setenv("TIDB_TPU_COMPILE_INDEX", "off")
+        kits = _kits(_wide_tables, "hjcp")
+        # a query shape of its OWN, in both packages: a fragment
+        # signature another test already built would (correctly) report
+        # the program ready and skip the shift this test exists to
+        # observe — the reference test's own shape (w2, v*w1) included
+        sql = ("select w3, sum(v*w4) s, count(*) c from fact, big "
+               "where fk = id group by w3 order by w3")
+        got = {}
+        for name, tk, hj, cs in (
+                ("ref", kits[0], rhj, __import__(
+                    "tidb_tpu.executor.compile_service",
+                    fromlist=["wait_idle"])),
+                ("port", kits[1], phj, __import__(
+                    "tidb_tpu_torch.executor.compile_service",
+                    fromlist=["wait_idle"]))):
+            tk.must_exec("set tidb_executor_engine = 'host'")
+            host = tk.must_query(sql).rows
+            tk.must_exec("set global tidb_device_mem_budget = 120000")
+            tk.must_exec("set tidb_executor_engine = 'tpu'")
+            tk.must_exec("set tidb_compile_async = 'ON'")
+            try:
+                cold = tk.must_query(sql).rows
+                first = _split(hj.STATS)
+                cs.wait_idle(timeout_s=30.0)
+                warm = tk.must_query(sql).rows
+                second = _split(hj.STATS)
+            finally:
+                tk.must_exec("set tidb_compile_async = 'OFF'")
+            assert _rows_equal(cold, host) and _rows_equal(warm, host)
+            # the cold async run shifted every partition host-ward
+            assert first[1] == first[0] > 0, first
+            # the warm run takes the device share back
+            assert second[0] > second[1], second
+            got[name] = (first, second[0])
+        clear_compile_state()
+        assert got["port"] == got["ref"], got
 
 
 class TestZeroRecompile:
@@ -471,17 +517,40 @@ class TestStatusGauges:
     ``compile_service.snapshot``, which the status page's
     ``device_hybrid_join`` / ``device_compiler`` and /metrics read."""
 
-    def test_snapshot_keys_equal_reference(self):
+    def test_snapshot_keys_equal_reference(self, monkeypatch):
+        """The keys equal the reference's, and one background build in
+        each package moves the same gauges by the same amounts."""
         from tidb_tpu.executor import compile_service as rcs
         from tidb_tpu_torch.executor import compile_service as pcs
         assert sorted(phj.snapshot()) == sorted(rhj.snapshot())
         assert sorted(pcs.snapshot()) == sorted(rcs.snapshot())
-        # a synchronous service: no queue, no workers, no background
-        # build
-        snap = pcs.snapshot()
-        assert pcs.queue_depth() == snap["compile_queue_depth"] == 0
-        assert snap["workers"] == snap["bg_submitted"] == 0
-        assert pcs.report_gauges()["compile_queue_depth"] == 0
+        monkeypatch.setenv("TIDB_TPU_COMPILE_INDEX", "off")
+        got = {}
+        for name, tk, cs in (("ref", RefKit(), rcs), ("port", PortKit(),
+                                                        pcs)):
+            tk.must_exec("use test")
+            tk.must_exec("create table sg (a int, b int)")
+            tk.must_exec("insert into sg values " + ",".join(
+                f"({i}, {i % 5})" for i in range(64)))
+            tk.must_exec("set tidb_executor_engine = 'tpu'")
+            tk.must_exec("set tidb_compile_async = 'ON'")
+            s0 = cs.snapshot()
+            tk.must_query("select b, sum(a) from sg group by b order by b")
+            assert cs.wait_idle(60.0)
+            tk.must_exec("set tidb_compile_async = 'OFF'")
+            s1 = cs.snapshot()
+            got[name] = (cs.queue_depth(), s1["compile_queue_depth"],
+                         s1["workers"] >= 1,
+                         {k: s1[k] - s0[k] for k in (
+                             "bg_submitted", "bg_completed", "bg_failed",
+                             "compile_pending_fragments",
+                             "compile_persist_hits")},
+                         s1["compile_bg_seconds"] > s0["compile_bg_seconds"],
+                         sorted(cs.report_gauges()))
+        assert got["port"] == got["ref"], got
+        assert got["port"][:4] == (0, 0, True, {
+            "bg_submitted": 1, "bg_completed": 1, "bg_failed": 0,
+            "compile_pending_fragments": 1, "compile_persist_hits": 0})
 
     def test_counters_move_on_a_hybrid_run(self, wide_kits):
         before = phj.snapshot()

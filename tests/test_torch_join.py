@@ -52,6 +52,9 @@ from tidb_tpu_torch.sqltypes import TYPE_LONGLONG, FieldType
 from tidb_tpu_torch.testkit import TestKit as PortKit
 from tidb_tpu_torch.utils import failpoint as tfailpoint
 from tidb_tpu_torch.utils.chunk import Column as PCol
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 I64_MAX = np.iinfo(np.int64).max
 

@@ -29,6 +29,9 @@ from tidb_tpu_torch.ops import device as tdev
 from tidb_tpu_torch.executor import device_exec as texec
 from tidb_tpu_torch.ops.kernels import expr_vm
 from tidb_tpu_torch.utils import failpoint as tfailpoint
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -33,6 +33,9 @@ from tidb_tpu_torch.executor import mpp_exec as pexec
 from tidb_tpu_torch.ops import device as tdev
 from tidb_tpu_torch.testkit import TestKit as PortKit
 from tidb_tpu_torch.utils import failpoint as pfailpoint
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 RSTATS, PSTATS = rexec.MPP_STATS, pexec.MPP_STATS
 

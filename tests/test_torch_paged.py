@@ -30,6 +30,9 @@ from tidb_tpu_torch.storage.paged import PagedTableWriter as PortWriter
 from tidb_tpu_torch.storage.paged import chunk_is_paged, open_paged_columns
 from tidb_tpu_torch.testkit import TestKit as PortKit
 from tidb_tpu_torch.utils.chunk import Chunk, LazyDictColumn
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 N = 9_000
 PAGE = 2_000

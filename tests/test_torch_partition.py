@@ -32,6 +32,9 @@ from tidb_tpu_torch.errors import TiDBError as PortError
 from tidb_tpu_torch.ops import device as tdev
 from tidb_tpu_torch.ops.kernels import expr_vm, groupby_agg
 from tidb_tpu_torch.testkit import TestKit as PortKit
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -23,6 +23,9 @@ from tidb_tpu_torch.server import MySQLServer as PortServer
 from tidb_tpu_torch.server import protocol as pproto
 from tidb_tpu_torch.session import Session as PortSession
 from tidb_tpu_torch.testkit import TestKit as PortKit
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 
 @pytest.fixture(autouse=True, scope="module")

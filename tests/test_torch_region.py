@@ -24,6 +24,9 @@ import time
 from types import SimpleNamespace
 
 import pytest
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 NREGIONS = 4
 PKGS = ("tidb_tpu", "tidb_tpu_torch")

@@ -9,6 +9,20 @@ the card's total, which also counts the CUDA context and other
 processes, and which would let the ledger admit uploads the card cannot
 hold.  The reference reads the allocator's ``bytes_limit`` for the same
 rule (tidb_tpu/ops/residency.py ``_auto_budget``).
+
+Below those, every case of tests/test_residency.py runs in both packages
+through ``torch_dual.dual`` — the reference body on the reference's
+fixtures, then the body retargeted to ``tidb_tpu_torch`` on the port's
+(device uploads on the CPU), each with the reference test's assertions
+— and the ledger's record of the two runs must be equal: how far each
+counter of ``residency.snapshot()`` moved from an empty ledger, resident
+bytes included (in
+the concurrent case, without the split between evictions and the
+collector's releases, which timing decides).  One
+edit on the port's side: ``test_publish_race_compare_and_keep`` races a
+publish of torch tensors where the reference's are ``jax.numpy`` arrays.
+Not here: ``TestDeviceCacheLint`` (the ``._device`` containment rule)
+waits for the port's ``lint/`` (ROADMAP queue 1 item 4).
 """
 
 import pytest
@@ -16,6 +30,7 @@ import torch
 
 from tidb_tpu_torch.ops import device as tdev
 from tidb_tpu_torch.ops import residency
+from torch_dual import dual
 
 GIB = 1 << 30
 
@@ -95,3 +110,35 @@ def test_ledger_evicts_under_auto_budget(fake_card):
         assert residency.resident_bytes() == 600
     finally:
         residency.evict_all("test end")
+
+
+# -- tests/test_residency.py in both packages ---------------------------------
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    tdev.set_device("cpu")
+    yield
+
+
+def _record(m):
+    snap = m.residency.snapshot()
+    return {k: v for k, v in snap.items()
+            if isinstance(v, int) and not isinstance(v, bool)}
+
+
+globals().update(dual(
+    "test_residency.py", record=_record,
+    # both packages' ledgers start empty (the bodies' own isolation
+    # evicts what earlier tests of the process left resident)
+    reset=lambda m: m.residency.evict_all("dual test reset"),
+    exclude=("TestDeviceCacheLint",),
+    # four threads upload against one budget: which entries the LRU
+    # evicts and which the collector releases first is timing
+    unsteady={"TestTenantResidency.test_concurrent_multitenant_ledger_"
+              "invariant": ("hbm_evictions", "hbm_evicted_bytes",
+                            "gc_releases")},
+    patches=[("""        import jax.numpy as jnp
+        loser = (jnp.zeros(64, dtype=jnp.int64), jnp.zeros(64, dtype=bool))""",
+              """        import torch
+        loser = (torch.zeros(64, dtype=torch.int64),
+                 torch.zeros(64, dtype=torch.bool))""")]))

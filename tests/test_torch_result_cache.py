@@ -27,6 +27,9 @@ from tidb_tpu_torch.kv.store import Storage  # noqa: E402
 from tidb_tpu_torch.session.session import bootstrap_domain  # noqa: E402
 from tidb_tpu_torch.testkit import TestKit  # noqa: E402
 from tidb_tpu_torch.utils import failpoint  # noqa: E402
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 Q = ("select grp, count(*), sum(val), avg(val) from t "
      "group by grp order by grp")

@@ -58,6 +58,9 @@ from tidb_tpu_torch.server.server import MySQLServer as PortServer
 from tidb_tpu_torch.session import bootstrap_domain as port_bootstrap
 from tidb_tpu_torch.session import new_session as port_new_session
 from tidb_tpu_torch.testkit import TestKit as PortKit
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 ROOT = __file__.rsplit("/tests/", 1)[0]
 

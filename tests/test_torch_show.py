@@ -20,6 +20,9 @@ from tidb_tpu_torch.errors import TiDBError as PortError
 from tidb_tpu_torch.ops import device as tdev
 from tidb_tpu_torch.session import diag as pdiag
 from tidb_tpu_torch.testkit import TestKit as PortKit
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 SCHEMA = (
     "create database shop",

@@ -21,6 +21,9 @@ from tidb_tpu_torch.executor import device_exec as texec
 from tidb_tpu_torch.ops import device as tdev
 from tidb_tpu_torch.testkit import TestKit as PortKit
 from tidb_tpu_torch.utils import failpoint as tfailpoint
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 Q01 = """
     select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,

@@ -37,6 +37,9 @@ from tidb_tpu_torch.executor import device_join as pdj
 from tidb_tpu_torch.ops import device as tdev
 from tidb_tpu_torch.ops.kernels import merge_states
 from tidb_tpu_torch.testkit import TestKit as PortKit
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 N_ROWS = 20_000
 BATCH = 3_000  # forces 7 blocks, the last one 2,000 rows

@@ -35,6 +35,9 @@ from tidb_tpu_torch import carry
 from tidb_tpu_torch.executor import device_exec as texec
 from tidb_tpu_torch.ops import device as tdev
 from tidb_tpu_torch.ops.kernels import expr_vm, groupby_agg
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 CPU = torch.device("cpu")
 

@@ -27,6 +27,9 @@ from tidb_tpu_torch.kv.shared_store import (DurableMVCCStore, SegmentTSOracle,
                                       key_hash)
 from tidb_tpu_torch.kv.store import Storage
 from tidb_tpu_torch.utils import failpoint
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 
 @pytest.fixture()

@@ -37,6 +37,9 @@ from tidb_tpu_torch.executor import device_exec as pexec
 from tidb_tpu_torch.ops import device as tdev
 from tidb_tpu_torch.ops.kernels import sort_topk, window_scan
 from tidb_tpu_torch.testkit import TestKit as PortKit
+from torch_dual import isolated  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("isolated")
 
 
 @pytest.fixture(autouse=True, scope="module")

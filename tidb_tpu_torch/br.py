@@ -281,6 +281,7 @@ def physical_restore_database(session, src: str,
                 id_map[od.id] = nd.id
         commit_ts = session.store.next_ts()
         n = 0
+        top = 0
         batch = []
         try:
             with st.open_read_bytes(base + ".kv.bin") as f:
@@ -304,6 +305,7 @@ def physical_restore_database(session, src: str,
                                   value))
                     if key[9:11] == tablecodec.RECORD_SEP:
                         n += 1
+                        top = max(top, tablecodec._dec_i64(key[11:19]))
                     if len(batch) >= _INGEST_BATCH:
                         mvcc.raw_batch_put(batch, commit_ts)
                         batch = []
@@ -324,8 +326,19 @@ def physical_restore_database(session, src: str,
                 pass  # surfacing the original failure matters more
             raise
         mvcc.bump_table_version(new_info.id, commit_ts)
+        _rebase_row_ids(session, new_info, top)
         restored.append({"name": info.name, "rows": n})
     return {"db": target_db, "tables": restored, "mode": "physical"}
+
+
+def _rebase_row_ids(session, info: TableInfo, top_handle: int):
+    """Move the restored table's row-id allocator past its largest
+    restored handle (over every partition of a partitioned table), so
+    the first INSERT after a RESTORE takes a fresh handle instead of
+    overwriting a restored row.  The reference leaves the allocator at
+    its start (ROADMAP, queue 3)."""
+    if top_handle > 0:
+        session.rebase_autoid(info.id, top_handle + 1)
 
 
 # -- restore (reference: br/pkg/task/restore.go) -----------------------------
@@ -356,7 +369,8 @@ def restore_database(session, src: str, db_name: str | None = None,
         _create_from_info(session, target_db, info)
         new_info = session.infoschema().table_by_name(target_db, info.name)
         with st.open_read(base + ".data.jsonl") as f:
-            n = _restore_rows(session, new_info, f)
+            n, top = _restore_rows(session, new_info, f)
+        _rebase_row_ids(session, new_info, top)
         restored.append({"name": info.name, "rows": n})
     return {"db": target_db, "tables": restored}
 
@@ -386,13 +400,16 @@ def _create_from_info(session, db_name: str, info: TableInfo):
     session.domain.reload_schema()
 
 
-def _restore_rows(session, info: TableInfo, lines) -> int:
+def _restore_rows(session, info: TableInfo, lines) -> tuple:
+    """-> (rows restored, largest handle among them)."""
     n = 0
+    top = 0
     batch = []
     for line in lines:
         if not line.strip():
             continue
         rec = json.loads(line)
+        top = max(top, int(rec["h"]))
         batch.append((rec["h"], bytes.fromhex(rec["v"])))
         if len(batch) >= BATCH:
             _write_batch(session, info, batch)
@@ -401,7 +418,7 @@ def _restore_rows(session, info: TableInfo, lines) -> int:
     if batch:
         _write_batch(session, info, batch)
         n += len(batch)
-    return n
+    return n, top
 
 
 def _write_batch(session, info, batch):

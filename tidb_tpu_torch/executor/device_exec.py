@@ -285,13 +285,33 @@ import threading as _threading
 
 _PIPE_STATS = {"hits": 0, "misses": 0, "traces": 0, "compiles": 0,
                "compile_s": 0.0,
+               # background mirror: compile work done on compile-service
+               # worker threads lands here instead, so per-query compile_s
+               # stays the SYNC cost
+               "bg_traces": 0, "bg_compiles": 0, "bg_compile_s": 0.0,
                # compile-mode counters (executor/compile_service.py):
                # how each pipeline resolution was served — drives the
                # per-fragment compile_mode EXPLAIN ANALYZE annotation
-               "mode_cached": 0, "mode_prewarmed": 0,
+               "mode_cached": 0, "mode_bg": 0, "mode_prewarmed": 0,
                "mode_async_pending": 0, "mode_sync": 0}
 _PIPE_LOCK = _threading.Lock()
 _PIPE_TLS = _threading.local()
+
+#: process-total keys a compile-service worker thread redirects into the
+#: bg_* mirror (its own TLS keeps the plain names)
+_BG_ROUTED = frozenset({"traces", "compiles", "compile_s"})
+
+
+def mark_bg_thread(on: bool = True) -> bool:
+    """Mark the CALLING thread as a background compile worker: its
+    trace/compile charges route to the process bg_* keys (query-path
+    compile accounting must not absorb background work).  Returns the
+    previous mark so a SCOPED marking (compile_service._do_compile under
+    a supervisor deadline runs on a REUSED supervisor worker thread)
+    can restore it."""
+    prev = getattr(_PIPE_TLS, "bg", False)
+    _PIPE_TLS.bg = on
+    return prev
 
 
 def _tls_stats() -> dict:
@@ -299,14 +319,18 @@ def _tls_stats() -> dict:
     if st is None:
         st = _PIPE_TLS.stats = {"hits": 0, "misses": 0, "traces": 0,
                                 "compiles": 0, "compile_s": 0.0,
-                                "mode_cached": 0, "mode_prewarmed": 0,
+                                "mode_cached": 0, "mode_bg": 0,
+                                "mode_prewarmed": 0,
                                 "mode_async_pending": 0, "mode_sync": 0}
     return st
 
 
 def _bump(key, amt=1):
+    pkey = key
+    if key in _BG_ROUTED and getattr(_PIPE_TLS, "bg", False):
+        pkey = "bg_" + key
     with _PIPE_LOCK:
-        _PIPE_STATS[key] += amt
+        _PIPE_STATS[pkey] += amt
     st = _tls_stats()
     if key in st:
         st[key] += amt
@@ -370,9 +394,9 @@ def acquire_pipeline(key, build, dict_refs, *, ctx=None, args=None,
 
 
 def _count_trace():
-    """Called once per pipeline build, never on a cached dispatch — and
-    on the thread that dispatched, so the thread-local mirror attributes
-    the build to the right query."""
+    """Called at a pipeline's first call at each argument shape, never on
+    a repeat — and on the thread that dispatched, so the thread-local
+    mirror attributes the build to the right query."""
     _bump("traces")
 
 
@@ -381,20 +405,63 @@ def _charge_compile_s(seconds):
     _bump("compile_s", seconds)
     from ..session import tracing
     tracing.event("compile.xla", s=round(seconds, 4))
-    # every build is synchronous in the port: the query path paid it
-    from . import compile_service
-    compile_service.observe_hist("sync_compile_seconds", seconds)
+    if not getattr(_PIPE_TLS, "bg", False):
+        # sync compiles only: the query path PAID this wall time, so it
+        # belongs in the scrapeable per-layer histogram — background
+        # builds overlap host serving and would poison the p99
+        from . import compile_service
+        compile_service.observe_hist("sync_compile_seconds", seconds)
+
+
+def _shape_sig(x, out):
+    """The (shape, dtype) of every tensor in an argument tree, in order;
+    other leaves do not key a pipeline's shape (as a jit traces Python
+    scalars as values, not as new programs)."""
+    if isinstance(x, torch.Tensor):
+        out.append((x.shape, x.dtype))
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            _shape_sig(v, out)
+    elif isinstance(x, dict):
+        for v in x.values():
+            _shape_sig(v, out)
+    return out
+
+
+class _Pipeline:
+    """A built pipeline: `fn` with the reference's jit retrace rule.  Its
+    first call at each argument shape counts one trace (the port's
+    counterpart of a jit retrace: the kernels' first launches at that
+    shape); a repeat at a seen shape costs one walk over the argument
+    tree.  Compile time stays the assembly's alone, charged where the
+    pipeline is built (:func:`_timed_jit`)."""
+
+    __slots__ = ("fn", "_seen", "__weakref__")
+
+    def __init__(self, fn):
+        self.fn = fn
+        self._seen = set()
+
+    def __call__(self, *args, **kw):
+        sig = tuple(_shape_sig(kw, _shape_sig(args, [])))
+        if sig not in self._seen:
+            with _PIPE_LOCK:
+                new = sig not in self._seen
+                self._seen.add(sig)
+            if new:
+                _count_trace()
+        return self.fn(*args, **kw)
 
 
 def _timed_jit(fn, t0=None):
     """Where the reference jit-compiles a pipeline.  The port's pipelines
-    are plain Python over prebuilt kernels, so this counts the build (the
-    `traces`/`compiles` stats behind EXPLAIN ANALYZE's xla_compiles) and
-    charges the seconds since `t0` — the program assembly — as compile
-    time."""
-    _count_trace()
+    are plain Python over prebuilt kernels: this charges the seconds
+    since `t0` — the program assembly — as compile time, and the
+    returned :class:`_Pipeline` counts a trace at each new argument shape
+    (the `traces`/`compiles` stats behind EXPLAIN ANALYZE's
+    xla_compiles)."""
     _charge_compile_s(_time.perf_counter() - t0 if t0 is not None else 0.0)
-    return fn
+    return _Pipeline(fn)
 
 
 def _dc_sig(dc) -> str:

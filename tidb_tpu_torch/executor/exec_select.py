@@ -90,7 +90,7 @@ class QueryExecutor:
             # `cached` because a later lookup hit
             mode = next(
                 (m for m in ("async_pending", "sync", "prewarmed",
-                             "cached")
+                             "bg", "cached")
                  if st1["mode_" + m] - st0["mode_" + m] > 0), None)
             if mode is not None:
                 self.annotate(compile_mode=mode)

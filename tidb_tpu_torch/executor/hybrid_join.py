@@ -567,8 +567,14 @@ def hybrid_join_agg(root, leaves, joins, probe, big_id, agg_plan,
         sig = (fragment_sig(leaves, joins, agg_conds, agg_plan)
                + f"|hyb{n_parts}/{probe_bucket}/{build_bucket}")
 
-        if n_dev > 0 and _compile_pending(ctx):
+        if n_dev > 0 and _compile_pending(ctx, sig, key_pack, agg_ops,
+                                          probe_bucket):
+            # shift everything host-ward for THIS run, but still kick the
+            # build so the next run takes the device share back
             n_dev, reason = 0, "compile_pending"
+            _kick_bg_compile(ctx, sig, key_pack, agg_ops, probe_bucket,
+                             root, leaves, joins, agg_plan, agg_conds,
+                             agg_meta, dcols)
         with _LOCK:
             tp = _THROUGHPUT.get(sig)
         if tp and n_dev > 0:
@@ -811,15 +817,40 @@ def _pick_fanout(bkey, bok, n_build, per_row, free) -> int:
     return p
 
 
-def _compile_pending(ctx) -> bool:
-    """Would the device half wait on a pending background compile this
-    run?  In the reference, with ``tidb_compile_async`` ON and the hybrid
-    program not yet built, the split shifts every partition host-ward.
-    The port's compile service builds on the query path
-    (executor/compile_service.py; the async build is ROADMAP queue 1's
-    compile layer), so a program is never pending: the answer is always
-    no."""
-    return False
+def _compile_pending(ctx, sig, key_pack, agg_ops, probe_bucket) -> bool:
+    """Would the device half degrade on a pending background compile
+    this run?  True when async compile is ON and no hybrid program of
+    this fragment and probe bucket is in the cache yet — the split
+    shifts everything host-ward and the NEXT run (program ready) takes
+    the device share back.  (The port's key also carries the group
+    capacity, so any capacity's program counts as built.)"""
+    try:
+        if str(ctx.get_sysvar("tidb_compile_async")).upper() != "ON":
+            return False
+    except Exception:
+        return False
+    from .device_exec import _PIPE_CACHE, _PIPE_LOCK
+    tail = (key_pack, tuple(agg_ops), "hybrid")
+    with _PIPE_LOCK:
+        return not any(len(k) == 6 and k[0] == sig and k[1] == probe_bucket
+                       and k[3:] == tail for k in _PIPE_CACHE
+                       if isinstance(k, tuple))
+
+
+def _hybrid_capacity(ctx, sig, agg_plan, probe_bucket) -> int:
+    """The group slots of a hybrid program: the planner's estimate over
+    one probe page, raised to the learned count of this fragment where a
+    page held more groups.  A learned count below the estimate keeps the
+    estimate's slots, so a repeat run reuses the program the first run
+    built instead of building a smaller one."""
+    from .device_exec import _estimate_groups
+    from .device_join import _CAP_STORE
+    est = _estimate_groups(agg_plan, probe_bucket, ctx)
+    cap = dev.next_pow2(min(probe_bucket, max(est, 16)))
+    learned = _CAP_STORE.get((sig, "agg"))
+    if learned is not None:
+        cap = max(cap, dev.next_pow2(max(learned, 16)))
+    return cap
 
 
 def _hybrid_pipeline(ctx, sig, key_pack, agg_ops, probe_bucket, capacity,
@@ -828,7 +859,10 @@ def _hybrid_pipeline(ctx, sig, key_pack, agg_ops, probe_bucket, capacity,
     """THE hybrid program resolution: the join fragment with its
     aggregate at `capacity` group slots, every join probe-shaped at the
     common probe bucket and the strategy snapshot (the partition stub)
-    bound into the build closure."""
+    bound into the build closure — a deferred build must see the stub
+    even after this run's exit path restores the join node's original
+    strategy.  Shared by the device pass and the compile-pending kick so
+    key and shape can never diverge between them."""
     from .device_exec import acquire_pipeline
     from .device_join import compile_fragment
     for jn in joins:
@@ -844,6 +878,20 @@ def _hybrid_pipeline(ctx, sig, key_pack, agg_ops, probe_bucket, capacity,
                                 key_pack, agg_meta, strategies=strategies)
     return acquire_pipeline(key, build, dict_refs, ctx=ctx, shape="join",
                             sig=sig)
+
+
+def _kick_bg_compile(ctx, sig, key_pack, agg_ops, probe_bucket, root,
+                     leaves, joins, agg_plan, agg_conds, agg_meta, dcols):
+    """Resolve the hybrid program through the compile service without
+    dispatching it: acquire_pipeline may raise the pending
+    DeviceUnsupported by design — here that IS the expected outcome."""
+    try:
+        _hybrid_pipeline(ctx, sig, key_pack, agg_ops, probe_bucket,
+                         _hybrid_capacity(ctx, sig, agg_plan, probe_bucket),
+                         root, leaves, joins, agg_plan, agg_conds, agg_meta,
+                         dcols)
+    except DeviceUnsupported:
+        pass
 
 
 def _balance_split(n_dev, n_parts, pparts, tp) -> int:
@@ -968,12 +1016,7 @@ def _device_pass(ctx, leaves, joins, probe, big, big_jn, brows, bparts,
             for lo in range(0, len(prow_all), probe_bucket):
                 yield p, prow_all, lo, min(lo + probe_bucket, len(prow_all))
 
-    learned = _CAP_STORE.get((sig, "agg"))
-    if learned is not None:
-        capacity = dev.next_pow2(max(learned, 16))
-    else:
-        est = _estimate_groups(agg_plan, probe_bucket, ctx)
-        capacity = dev.next_pow2(min(probe_bucket, max(est, 16)))
+    capacity = _hybrid_capacity(ctx, sig, agg_plan, probe_bucket)
     learned_total = _CAP_STORE.get((sig, "groups"))
     merge_cap = dev.next_pow2(max(learned_total or capacity, 16))
     base_lives = [int(lf.chunk.num_rows) for lf in leaves]

@@ -115,6 +115,8 @@ def main() -> int:
     coordinator.claim_slot(slot)
     state.activate(coordinator, slot,
                    os.environ.get("TIDB_TPU_COMPILE_SERVER") or None)
+    from .compile_client import library_from_server
+    library_from_server()
 
     from ..kv import new_store
     from ..session import bootstrap_domain
@@ -303,6 +305,10 @@ def main() -> int:
         name: importlib.import_module(
             f"..ops.kernels.{name}", __package__).LAUNCHES[0]
         for name in LAUNCH_COUNTERS}
+    # this incarnation's kernel-library builds: nvcc runs here, and the
+    # times the compile server handed the library over instead
+    from ..ops.kernels import build as kernel_build
+    summary["kernel_build"] = dict(kernel_build.STATS)
     print(json.dumps(summary), flush=True)
     # last perf drain while the coordinator is still attached — the
     # samples this worker buffered since the final heartbeat

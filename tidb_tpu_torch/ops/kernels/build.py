@@ -6,7 +6,9 @@ library with a plain C interface, loaded with ctypes.  The library's name
 carries a hash of the sources, so an edited kernel never loads a stale
 build.  The build directory (``build/`` beside this file) is git-ignored;
 the first caller on a machine with the CUDA toolkit builds it, and later
-callers load it.
+callers load it.  An ``fcntl`` lock on ``build/.build.lock`` makes two
+processes on one fresh tree run ``nvcc`` once: the second waits and
+loads the first one's library.
 
 Run ``python -m tidb_tpu_torch.ops.kernels.build`` to build ahead of
 time and print the compiler's register and shared-memory report.
@@ -15,6 +17,7 @@ time and print the compiler's register and shared-memory report.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -37,6 +40,11 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 
 _LOCK = threading.Lock()
 _LIB = [None]
+
+#: this process's library builds: how many ran nvcc and their seconds,
+#: and how many times a fleet's compile server handed the library over
+#: instead (``fabric/compile_client.py library_from_server``)
+STATS = {"nvcc_runs": 0, "nvcc_s": 0.0, "from_server": 0}
 
 
 class KernelBuildError(RuntimeError):
@@ -76,19 +84,37 @@ def nvcc_path() -> str:
                            "toolkit's bin/ on PATH)")
 
 
-def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"libtidb_kernels_{_digest()}.so")
+def library_path(out_dir: "str | None" = None,
+                 digest: "str | None" = None) -> str:
+    return os.path.join(out_dir or BUILD_DIR,
+                        f"libtidb_kernels_{digest or _digest()}.so")
 
 
-def build(force: bool = False) -> str:
-    """Compile every source in parallel and link them; returns the
-    library path.  Writes each compiler's output to ``build/<name>.log``."""
-    out = library_path()
+def build(force: bool = False, out_dir: "str | None" = None) -> str:
+    """Compile every source in parallel and link them into `out_dir`
+    (default ``build/``); returns the library path.  Writes each
+    compiler's output to ``<out_dir>/<name>.log``.  Holds an ``fcntl``
+    lock on ``<out_dir>/.build.lock`` while it builds, so a concurrent
+    build of the same tree waits and finds the library made."""
+    out_dir = out_dir or BUILD_DIR
+    out = library_path(out_dir)
     if os.path.exists(out) and not force:
         return out
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, ".build.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if os.path.exists(out) and not force:
+            return out
+        t0 = time.perf_counter()
+        _build_locked(out_dir, out)
+        STATS["nvcc_runs"] += 1
+        STATS["nvcc_s"] += time.perf_counter() - t0
+    return out
+
+
+def _build_locked(out_dir: str, out: str):
     nvcc = nvcc_path()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmpdir = tempfile.mkdtemp(prefix="obj-", dir=BUILD_DIR)
+    tmpdir = tempfile.mkdtemp(prefix="obj-", dir=out_dir)
     try:
         procs = []
         for src in sources():
@@ -101,13 +127,13 @@ def build(force: bool = False) -> str:
         errors = []
         for name, _obj, p in procs:
             text = p.communicate()[0].decode(errors="replace")
-            with open(os.path.join(BUILD_DIR, name + ".log"), "w") as f:
+            with open(os.path.join(out_dir, name + ".log"), "w") as f:
                 f.write(text)
             if p.returncode != 0:
                 errors.append(f"--- {name}.cu (exit {p.returncode})\n{text}")
         if errors:
             raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
-        fd, tmp_so = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
+        fd, tmp_so = tempfile.mkstemp(suffix=".so.tmp", dir=out_dir)
         os.close(fd)
         cmd = ([nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp_so]
                + [obj for _n, obj, _p in procs])
@@ -119,7 +145,6 @@ def build(force: bool = False) -> str:
         os.rename(tmp_so, out)  # atomic: no process loads a partial file
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
-    return out
 
 
 def lib() -> ctypes.CDLL:
