@@ -254,9 +254,28 @@ Phases, each fatal on failure:
    mesh (Q3 through the hash exchange: orders' 15,000,000 rows), warm-up
    then timed, rows equal to ``[sf10]``'s resident rows, and Q3 under
    torch.profiler;
+10b. ``[mpp-cards]`` — the MPP engine on a SPLIT mesh (one tensor a
+   shard, shard i's on its own device), driven from this one process.
+   With two or more cards, ``tidb_mpp_devices = 0`` gives one shard a
+   card: ``[mpp]``'s queries (Q1, Q6, Q3, Q5, Q9, Q18, the shuffle, the
+   hot key) and SF10 Q1 and Q3, each warmed, then timed with its rows
+   equal to the host engine's (SF10: ``[sf10]``'s) and to the one-card
+   8-shard mesh's, EXPLAIN ANALYZE's ``engine:tpu-mpp``, no retry on the
+   timed run (nothing dropped), a warm Q3 with no build, and launches on
+   every card (``ops/kernels/build.py CARD_LAUNCHES``); the bytes each
+   card holds, the exchange's bytes between cards and its largest
+   all_to_all timed alone, each card pair's peer access; then a session
+   with the engine on the last card (``set_device``) runs Q1 and Q3 from
+   a thread whose device is 0, every launch on that card.  With one card:
+   a split mesh of 4 shards, all on cuda:0, over SF1 Q1, Q3 and the
+   shuffle with the same checks, and a line that says copies between
+   cards and launches on a second card were not exercised.  ``python3
+   chip_smoke.py --mpp-cards`` runs the phase alone after the tables and
+   rows it is held to (a run on several cards);
 11. report — the card's name and power limit, a ``kernels`` JSON line
    (``launches_server`` and ``launches_fleet`` beside each row's main-path
-   ``launches``), and as the last line ``{"ok": true, "device": {...}}``.
+   ``launches``; ``cards`` and ``[mpp-cards]``'s ``launches_by_card``),
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the ``tidb_tpu_torch`` package beside it,
 the script exits non-zero before printing any result.
@@ -2414,6 +2433,10 @@ def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
     from tidb_tpu_torch.ops import residency
     sqls = dict(QUERIES)
     counters = mpp_counters()
+    # the mesh of this phase is the one-card mesh however many cards are
+    # visible: its logical shards all on the session's card
+    mpp_exec.set_mesh_devices([torch.device("cuda", 0)])
+    mesh_rows = {}
     s.execute("use tpch")
     s.execute(f"set tidb_mpp_devices = {MPP_SHARDS}")
     s.execute("set @@tidb_executor_engine = 'tpu-mpp'")
@@ -2452,6 +2475,7 @@ def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
                      f"mesh {res.rows[:5]}\nhost {want.rows[:5]}")
             if name in ("q3", "shuffle") and d["shuffle_joins"] <= 0:
                 fail(f"mpp {name}: did not take the hash exchange")
+            mesh_rows[name] = (res, dt)
             mpp_line("mpp", name, dt, d, xb, moved)
         # warm Q3: the learned capacities hit the cached pipeline
         ps0 = device_exec.pipe_cache_stats()
@@ -2478,6 +2502,7 @@ def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
                  f"{d['exchange_overflow_retries']}, shuffles "
                  f"{d['shuffle_joins']}, rows {res.rows} vs host "
                  f"{host_skew.rows}")
+        mesh_rows["skew"] = (res, dt)
         mpp_line("mpp", f"skew ({SKEW_ROWS} fact rows, 70% on one key; "
                  "rows equal the host's, 0 dropped)", dt, d, xb, moved)
     sql_launches = {k: c[0] for k, c in counters.items()}
@@ -2594,8 +2619,12 @@ def phase_mpp(s, dom, host_res, mpp_keys, seed, report):
     with mpp_exec._PLACE_LOCK:
         mpp_exec._MPP_PLACE_CACHE.clear()
     residency.evict_all("[mpp] done")
+    mpp_exec.set_mesh_devices(None)
     s.execute("set @@tidb_executor_engine = 'tpu'")
     torch.cuda.empty_cache()
+    # what [mpp-cards] holds its meshes to: the host engine's rows of the
+    # shuffle and the hot key, and this phase's rows and seconds
+    return {"shuffle": host_shuffle, "skew": host_skew}, mesh_rows
 
 
 def phase_mpp_sf10(s, sf10_rows):
@@ -2608,6 +2637,8 @@ def phase_mpp_sf10(s, sf10_rows):
     counters = mpp_counters()
     residency.evict_all("[mpp-sf10]")
     torch.cuda.empty_cache()
+    mpp_exec.set_mesh_devices([torch.device("cuda", 0)])
+    mesh_rows = {}
     s.execute("use tpch10")
     s.execute(f"set tidb_mpp_devices = {MPP_SHARDS}")
     s.execute("set @@tidb_executor_engine = 'tpu-mpp'")
@@ -2627,13 +2658,525 @@ def phase_mpp_sf10(s, sf10_rows):
                          f"sf10 {want.rows[:5]}")
                 if name == "q3" and d["shuffle_joins"] <= 0:
                     fail("mpp-sf10 q3: did not take the hash exchange")
+                mesh_rows[name] = (res, dt)
                 mpp_line("mpp-sf10", f"{name} ({len(res.rows)} rows equal "
                          f"[sf10]'s {what} rows)", dt, d, xb, moved)
         mpp_profile("mpp-sf10", s, "q3", sqls["q3"])
     finally:
         with mpp_exec._PLACE_LOCK:
             mpp_exec._MPP_PLACE_CACHE.clear()
+        mpp_exec.set_mesh_devices(None)
         s.execute("set @@tidb_executor_engine = 'tpu'")
+    return mesh_rows
+
+
+# -- the mesh across cards: one process, one shard a card --------------------
+
+#: [mpp-cards]'s queries where two or more cards are visible: [mpp]'s
+CARDS_QUERIES = MPP_QUERIES + ("q18", "shuffle", "skew")
+#: with one card: a split mesh of this many shards, every one on cuda:0,
+#: over these queries
+ONE_CARD_SHARDS = 4
+ONE_CARD_QUERIES = ("q1", "q3", "shuffle")
+#: each kernel's C launchers, whose calls ops/kernels/build.py counts by
+#: card (CARD_LAUNCHES): the calls its own LAUNCHES counter counts (K4's
+#: also count the sorts of K1's hash path, which K1's counter holds)
+CARD_FNS = {"expr_vm": ("expr_vm_run",),
+            "groupby_agg": ("gb_groups_run",),
+            "sort_topk": ("sort_keys_run",),
+            "join_probe": ("join_range_run", "join_probe_run",
+                           "join_finish_run"),
+            "join_expand": ("join_expand_run",),
+            "merge_states": ("ms_fold_run",),
+            "window_scan": ("window_scan_run",),
+            "radix_exchange": ("radix_hash_run", "radix_partition_run"),
+            "shuffle_join": ("shuffle_join_run",)}
+
+
+def card_launches():
+    """{kernel: {card: launcher calls}} since CARD_LAUNCHES was cleared."""
+    from tidb_tpu_torch.ops.kernels import build
+    out = {}
+    for k, fns in CARD_FNS.items():
+        for (fn, card), c in build.CARD_LAUNCHES.items():
+            if fn in fns:
+                row = out.setdefault(k, {})
+                row[card] = row.get(card, 0) + c
+    return out
+
+
+def cards_text() -> str:
+    """Every visible card's name and power limit, as nvidia-smi gives
+    them, and their count."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    lines = smi.stdout.strip().splitlines()
+    return f"{'; '.join(lines)} ({len(lines)} cards)"
+
+
+def sync_all():
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+class A2ACapture:
+    """While installed on `mesh`, keeps the grids of its largest
+    all_to_all (by bytes) for a timing of the exchange alone."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.best = None
+
+    def __enter__(self):
+        fn = self.mesh.all_to_all
+
+        def a2a(grids):
+            nb = sum(g.numel() * g.element_size() for g in grids)
+            if self.best is None or nb > self.best[0]:
+                self.best = (nb, list(grids))
+            return fn(grids)
+        self.mesh.all_to_all = a2a
+        return self
+
+    def __exit__(self, *exc):
+        del self.mesh.all_to_all
+        return False
+
+
+def exchange_ms(mesh, grids, reps=10):
+    """The median ms of `mesh`'s all_to_all of `grids` alone, every card
+    synchronised before and after, and the bytes it copies from one card
+    to another."""
+    b0 = mesh.stats["bytes_between_devices"]
+    mesh.all_to_all(grids)
+    sync_all()
+    between = mesh.stats["bytes_between_devices"] - b0
+    times = []
+    for _ in range(reps):
+        sync_all()
+        t0 = time.perf_counter()
+        mesh.all_to_all(grids)
+        sync_all()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2], between
+
+
+def guard_us(n_cards, calls=20000):
+    """The host cost of ``build.launch``'s device guard a call, in µs:
+    one trivial C call of the library through it, on the current card
+    and (with two or more cards) on another, less the same call made
+    directly; medians of 5 rounds of `calls` calls."""
+    import ctypes
+    import torch
+    from tidb_tpu_torch.ops.kernels import build
+    fn = build.lib().tidb_cuda_error_string
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+    torch.cuda.set_device(0)
+
+    def per_call(call):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+        return sorted(times)[2]
+    direct = per_call(lambda: fn(0))
+    out = {"same card": per_call(
+        lambda: build.launch(torch.device("cuda", 0), fn, 0)) - direct}
+    if n_cards >= 2:
+        other = torch.device("cuda", n_cards - 1)
+        out["another card"] = per_call(
+            lambda: build.launch(other, fn, 0)) - direct
+    build.CARD_LAUNCHES.clear()
+    return direct, out
+
+
+def cards_run(s, mesh, name, sql, counters, cap, want, n_cards, tag):
+    """One query on the split mesh, warm: a warm-up (placement, builds,
+    retries; EXPLAIN ANALYZE shows engine:tpu-mpp), then two timed runs,
+    whose rows must equal every result of `want` ({what: result}), with
+    no capacity or exchange retry (nothing dropped), the kernels of
+    MPP_NEED launched, and kernels on each of the mesh's cards.  Returns
+    (result, the two runs' seconds, the second's launches by kernel and
+    card, MPP_STATS deltas and exchange bytes, the bytes its exchange
+    copied between cards, its launches)."""
+    from tidb_tpu_torch.ops.kernels import build
+    s.execute(sql)
+    sync_all()
+    if name != "skew":
+        check_top_agg(s, name, sql)
+    dts = []
+    for _ in range(2):
+        sync_all()
+        build.CARD_LAUNCHES.clear()
+        x0 = mesh.stats["bytes_between_devices"]
+        res, dt, moved, d, xb = mpp_run(s, name, sql, counters, cap,
+                                        MPP_NEED[name])
+        between = mesh.stats["bytes_between_devices"] - x0
+        dts.append(dt)
+        for what, w in want.items():
+            if not rows_equal(res, w):
+                fail(f"{tag} {name}: rows differ from {what}:\nsplit "
+                     f"{res.rows[:5]}\n{what} {w.rows[:5]}")
+        if d["retries"] or d["exchange_overflow_retries"]:
+            fail(f"{tag} {name}: the warm run retried ({d}): a dispatch "
+                 "dropped rows or overflowed")
+    by_card = card_launches()
+    if name in ("q3", "shuffle", "skew") and d["shuffle_joins"] <= 0:
+        fail(f"{tag} {name}: did not take the hash exchange")
+    ran = {card for per in by_card.values() for card in per}
+    cards = set(range(n_cards))
+    if ran != cards:
+        fail(f"{tag} {name}: kernels ran on cards {sorted(ran)}, not on "
+             f"every card of the mesh {sorted(cards)}")
+    return res, dts, by_card, d, xb, between, moved
+
+
+#: K11's library steps in [mpp-cards]: seeded rows, int64 keys over this
+#: many distinct values, the agg step's capacity, the join step's
+#: sub-bucket cap
+CARDS_STEP_ROWS = 1 << 22
+CARDS_STEP_KEYS = 1 << 20
+CARDS_STEP_CAP = 1 << 21
+CARDS_STEP_XCAP = 1 << 17
+
+
+def cards_dist_steps(mesh, seed, cards):
+    """K11's dist_agg_step and dist_join_agg_step on the split `mesh`
+    against the same steps on a local mesh of as many shards on cuda:0,
+    on seeded rows: every output exact (int64), nothing dropped, kernels
+    (B's included) on each of the mesh's cards.  Returns the split run's
+    launches by kernel and card."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops.kernels import build
+    from tidb_tpu_torch.parallel import mpp
+    rng = np.random.default_rng(seed)
+    rows = CARDS_STEP_ROWS
+    keys = rng.integers(0, CARDS_STEP_KEYS, rows)
+    vals = rng.integers(-99, 99, rows)
+    valid = rng.random(rows) < 0.9
+    out, ms, by_card = {}, {}, None
+    for tag, m in (("split", mesh),
+                   ("local", mpp.make_mesh(mesh.n, device="cuda:0"))):
+        (k, v, x), _pad = mpp.shard_batch(m, keys, valid, vals)
+        agg = mpp.dist_agg_step(m, ("sum",), CARDS_STEP_CAP)
+        join = mpp.dist_join_agg_step(m, CARDS_STEP_XCAP)
+        agg(k, v, x)
+        join(k, x, v, k, x, v)
+        sync_all()
+        build.CARD_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        a = agg(k, v, x)
+        j = join(k, x, v, k, x, v)
+        sync_all()
+        ms[tag] = (time.perf_counter() - t0) * 1e3
+        if tag == "split":
+            by_card = card_launches()
+        ng = int(a[3])
+        out[tag] = (ng, bool(a[4]), a[0][:ng].cpu(), a[1][0][:ng].cpu(),
+                    [int(t) for t in j])
+        del k, v, x, a, j
+    (sng, sovf, sk, ss, sj), (lng, lovf, lk, ls, lj) = out["split"], \
+        out["local"]
+    if (sng != lng or sovf or lovf or not torch.equal(sk, lk)
+            or not torch.equal(ss, ls) or sj != lj or sj[2]):
+        fail(f"mpp-cards K11 steps: the split mesh gave {sng} groups, join "
+             f"{sj}; the local mesh {lng}, {lj}")
+    ran = {c for per in by_card.values() for c in per}
+    if ran != {d.index for d in mesh.devices}:
+        fail(f"mpp-cards K11 steps: kernels ran on cards {sorted(ran)}")
+    log(f"[mpp-cards] K11 library steps on {rows:,} seeded rows "
+        f"(dist_agg_step: {sng:,} groups; dist_join_agg_step: total "
+        f"{sj[0]:,}, {sj[1]:,} pairs, 0 dropped), equal to the local "
+        f"mesh's: {ms['split']:.3f} ms on the split mesh, "
+        f"{ms['local']:.3f} ms on {mesh.n} shards on cuda:0; launches by "
+        f"card {by_card}; {cards}")
+    return by_card
+
+
+def phase_mpp_cards(s, s10, host_res, mesh_rows, sf10_rows, mesh10_rows,
+                    report, seed=42):
+    """``[mpp-cards]`` — the MPP engine on a split mesh, one shard a card,
+    driven from this one process.  With two or more cards:
+    ``tidb_mpp_devices = 0`` (every card), SF1's [mpp] queries and SF10 Q1
+    and Q3, each held to the host engine's (SF10: the resident path's)
+    rows and to the one-card 8-shard mesh's, kernels on every card; then a
+    session on the last card (``set_device``) runs Q1 and Q3 on the
+    single-device engine.  With one card: a split mesh of 4 shards, every
+    one on cuda:0, over SF1 Q1, Q3 and the shuffle, with the same checks,
+    and a line that says what that cannot exercise."""
+    import torch
+    from tidb_tpu_torch.executor import device_exec, mpp_exec
+    from tidb_tpu_torch.ops import residency
+    n = torch.cuda.device_count()
+    cards = cards_text()
+    sqls = dict(QUERIES, shuffle=SHUFFLE_Q, skew=SKEW_Q)
+    counters = mpp_counters()
+    residency.evict_all("[mpp-cards]")
+    torch.cuda.empty_cache()
+    if n >= 2:
+        mpp_exec.set_mesh_devices(None)
+        names, shards = CARDS_QUERIES, n
+        peers = [f"{i}->{j} {torch.cuda.can_device_access_peer(i, j)}"
+                 for i in range(n) for j in range(n) if i != j]
+        log(f"[mpp-cards] peer access: {', '.join(peers)}; {cards}")
+    else:
+        mpp_exec.set_mesh_devices([torch.device("cuda", 0)]
+                                  * ONE_CARD_SHARDS)
+        names, shards = ONE_CARD_QUERIES, ONE_CARD_SHARDS
+    direct, guard = guard_us(n)
+    log(f"[mpp-cards] launch guard's host cost a call (build.launch less a "
+        f"direct call of {direct:.3f} µs): "
+        + ", ".join(f"{k} {v:.3f} µs" for k, v in guard.items())
+        + f"; {cards}")
+    launches = {}
+    try:
+        s.execute("use tpch")
+        s.execute("set tidb_mpp_devices = 0")
+        s.execute("set @@tidb_executor_engine = 'tpu-mpp'")
+        mesh = mpp_exec.mpp_mesh(s)
+        if mesh is None or not mesh.split or mesh.n != shards:
+            fail(f"mpp-cards: tidb_mpp_devices = 0 gave {mesh}, not a split "
+                 f"mesh of {shards} shards")
+        log(f"[mpp-cards] {mesh}, {cards}")
+        t0 = time.perf_counter()
+        with KernelCapture() as cap, A2ACapture(mesh) as a2a:
+            for name in names:
+                skew = name == "skew"
+                if skew:
+                    s.execute("use skew")
+                    s.execute("set tidb_broadcast_join_threshold_count = 30")
+                try:
+                    res, dt, by_card, d, xb, between, moved = cards_run(
+                        s, mesh, name, sqls[name], counters, cap,
+                        {"the host engine's": host_res[name],
+                         "the one-card 8-shard mesh's": mesh_rows[name][0]},
+                        n, "mpp-cards")
+                finally:
+                    if skew:
+                        s.execute("set tidb_broadcast_join_threshold_count "
+                                  "= 10240")
+                        s.execute("use tpch")
+                for k, per in by_card.items():
+                    row = launches.setdefault(k, {})
+                    for card, c in per.items():
+                        row[card] = row.get(card, 0) + c
+                log(f"[mpp-cards] {name}: {dt[0] * 1e3:.3f} / "
+                    f"{dt[1] * 1e3:.3f} ms (two timed runs) on {mesh.n} "
+                    f"shards ([mpp]'s 8 shards on one card "
+                    f"{mesh_rows[name][1] * 1e3:.3f} ms); {len(res.rows)} "
+                    "rows equal the host engine's and the one-card mesh's; "
+                    f"fragments {d['fragments']}, shuffles "
+                    f"{d['shuffle_joins']}, retries 0 (nothing dropped); "
+                    f"kernel A grids {xb[0]:,} B, of them {between:,} B "
+                    f"copied between cards; launches by card {by_card}; "
+                    f"{cards}")
+            # warm Q3: the learned capacities hit the cached pipeline
+            ps0 = device_exec.pipe_cache_stats()
+            res, dt, _m, d, _x = mpp_run(s, "q3 warm", sqls["q3"], counters,
+                                         cap, MPP_NEED["q3"])
+            ps1 = device_exec.pipe_cache_stats()
+            misses = ps1["misses"] - ps0["misses"]
+            builds = ps1["traces"] - ps0["traces"]
+            if misses or builds or not rows_equal(res, host_res["q3"]):
+                fail(f"mpp-cards q3 warm: {misses} pipe misses, {builds} "
+                     "builds")
+            log(f"[mpp-cards] q3 warm: {dt * 1e3:.3f} ms, pipe misses 0, "
+                f"builds 0; {cards}")
+        placed = ", ".join(f"cuda:{i} {torch.cuda.memory_allocated(i):,} B"
+                           for i in range(n))
+        log(f"[mpp-cards] memory allocated on each card (every live "
+            f"tensor, SF1's placements among them): {placed} (the ledger's "
+            f"placements: {mpp_exec.place_cache_bytes():,} B); {cards}")
+        if a2a.best is not None:
+            ms, between = exchange_ms(mesh, a2a.best[1])
+            log(f"[mpp-cards] the largest exchange of the runs alone "
+                f"({a2a.best[0]:,} B of grids, {between:,} B between "
+                f"cards): {ms:.3f} ms, every card synchronised before and "
+                f"after; {cards}")
+        a2a = None
+        log(f"[mpp-cards] SF1: {time.perf_counter() - t0:.1f}s")
+        for k, per in cards_dist_steps(mesh, seed, cards).items():
+            row = launches.setdefault(k, {})
+            for card, c in per.items():
+                row[card] = row.get(card, 0) + c
+        with mpp_exec._PLACE_LOCK:
+            mpp_exec._MPP_PLACE_CACHE.clear()
+        residency.evict_all("[mpp-cards] SF1 done")
+        if n >= 2:
+            s10.execute("use tpch10")
+            s10.execute("set tidb_mpp_devices = 0")
+            s10.execute("set @@tidb_executor_engine = 'tpu-mpp'")
+            try:
+                with KernelCapture() as cap:
+                    for name in ("q1", "q3"):
+                        res, dt, by_card, d, xb, between, _m = cards_run(
+                            s10, mesh, name, sqls[name], counters, cap,
+                            {f"[sf10]'s {sf10_rows[name][1]}":
+                             sf10_rows[name][0],
+                             "the one-card 8-shard mesh's":
+                             mesh10_rows[name][0]}, n, "mpp-cards sf10")
+                        log(f"[mpp-cards] sf10 {name}: {dt[0] * 1e3:.3f} / "
+                            f"{dt[1] * 1e3:.3f} ms (two timed runs) on "
+                            f"{mesh.n} shards ([mpp-sf10]'s 8 shards on one "
+                            f"card {mesh10_rows[name][1] * 1e3:.3f} ms); "
+                            f"rows equal; {between:,} B between cards; "
+                            f"launches by card {by_card}; {cards}")
+            finally:
+                s10.execute("set @@tidb_executor_engine = 'tpu'")
+                with mpp_exec._PLACE_LOCK:
+                    mpp_exec._MPP_PLACE_CACHE.clear()
+                residency.evict_all("[mpp-cards] SF10 done")
+            last_card_session(s, n - 1, host_res, cards)
+        else:
+            log("[mpp-cards] one card visible: the split layout ran with "
+                f"its {ONE_CARD_SHARDS} shards on cuda:0, so copies between "
+                "cards and launches on a second card were NOT exercised by "
+                f"this run; {cards}")
+    finally:
+        mpp_exec.set_mesh_devices(None)
+        s.execute("set @@tidb_executor_engine = 'tpu'")
+        torch.cuda.empty_cache()
+    for key, row in report.items():
+        row["cards"] = n
+        row["launches_by_card"] = launches.get(key, {})
+
+
+def last_card_session(s, card, host_res, cards):
+    """[main]'s Q1 and Q3 on the single-device engine with the engine on
+    the last card (``set_device(f"cuda:{card}")``), this thread's device
+    set back to 0 first: every launch on that card, rows equal the host
+    engine's, engine:tpu on the HashAggs."""
+    import torch
+    from tidb_tpu_torch.ops import device as pdev
+    from tidb_tpu_torch.ops.kernels import build
+    sqls = dict(QUERIES)
+    pdev.set_device(f"cuda:{card}")
+    try:
+        s.execute("use tpch")
+        s.execute("set @@tidb_executor_engine = 'tpu'")
+        for name in ("q1", "q3"):
+            torch.cuda.set_device(0)  # launches must not follow the thread
+            s.execute(sqls[name])
+            build.CARD_LAUNCHES.clear()
+            sync_all()
+            t0 = time.perf_counter()
+            res = s.execute(sqls[name])[-1]
+            sync_all()
+            dt = time.perf_counter() - t0
+            by_card = card_launches()
+            ran = {c for per in by_card.values() for c in per}
+            if ran != {card}:
+                fail(f"mpp-cards last card {name}: kernels ran on cards "
+                     f"{sorted(ran)}, not on cuda:{card} alone")
+            if not rows_equal(res, host_res[name]):
+                fail(f"mpp-cards last card {name}: rows differ from the "
+                     "host engine's")
+            ex = s.execute("explain analyze " + sqls[name])[-1]
+            aggs = [r for r in ex.rows if "HashAgg" in str(r[0])]
+            if not aggs or not all(any("engine:tpu" in str(c) for c in r)
+                                   for r in aggs):
+                fail(f"mpp-cards last card {name}: EXPLAIN ANALYZE shows a "
+                     "HashAgg without engine:tpu")
+            log(f"[mpp-cards] session on cuda:{card} (the thread's device "
+                f"0): {name} {dt * 1e3:.3f} ms, rows equal the host "
+                f"engine's, engine:tpu, launches by card {by_card}; {cards}")
+    finally:
+        # the engine back on the thread's current card, and that card 0
+        pdev.set_device("cuda")
+        torch.cuda.set_device(0)
+
+
+
+def one_card_rows(s, names, sqls):
+    """[mpp]'s rows and warm seconds of `names` on the one-card mesh of
+    MPP_SHARDS logical shards (for ``--mpp-cards`` alone)."""
+    import torch
+    from tidb_tpu_torch.executor import mpp_exec
+    mpp_exec.set_mesh_devices([torch.device("cuda", 0)])
+    s.execute(f"set tidb_mpp_devices = {MPP_SHARDS}")
+    s.execute("set @@tidb_executor_engine = 'tpu-mpp'")
+    out = {}
+    try:
+        for name in names:
+            if name == "skew":
+                s.execute("use skew")
+                s.execute("set tidb_broadcast_join_threshold_count = 30")
+            try:
+                s.execute(sqls[name])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = s.execute(sqls[name])[-1]
+                torch.cuda.synchronize()
+                out[name] = (res, time.perf_counter() - t0)
+            finally:
+                if name == "skew":
+                    s.execute("set tidb_broadcast_join_threshold_count = "
+                              "10240")
+    finally:
+        with mpp_exec._PLACE_LOCK:
+            mpp_exec._MPP_PLACE_CACHE.clear()
+        mpp_exec.set_mesh_devices(None)
+        s.execute("set @@tidb_executor_engine = 'tpu'")
+    return out
+
+
+def mpp_cards_alone(args):
+    """``--mpp-cards``: the ``[mpp-cards]`` phase alone, after what it is
+    held to: SF1's tables, the host engine's and the one-card 8-shard
+    mesh's rows of [mpp]'s queries, and with two or more cards SF10's
+    tables, the resident path's Q1 and Q3 and the one-card mesh's."""
+    import torch
+    from tidb_tpu_torch import carry
+    from tidb_tpu_torch.ops import residency
+    from tidb_tpu_torch.session import new_session
+    report = {k: {} for k in CARD_FNS}
+    phase_build()
+    dom, s, _n, keys = phase_sql_setup(args, {}, {})
+    del keys
+    sqls = dict(QUERIES, shuffle=SHUFFLE_Q, skew=SKEW_Q)
+    many = torch.cuda.device_count() >= 2
+    names = CARDS_QUERIES if many else ONE_CARD_QUERIES
+    if "skew" in names:
+        _install_skew(s, dom, args.seed)
+    s.execute("set @@tidb_executor_engine = 'host'")
+    host = {}
+    for name in names:
+        s.execute("use skew" if name == "skew" else "use tpch")
+        host[name] = s.execute(HOST_TEXT.get(name, sqls[name]))[-1]
+    s.execute("use tpch")
+    mesh_rows = one_card_rows(s, names, sqls)
+    s.execute("use tpch")
+    residency.evict_all("--mpp-cards SF1 references")
+    s10 = sf10_rows = mesh10_rows = None
+    if many:
+        t0 = time.perf_counter()
+        tables = carry.gen_tpch(SF_BIG, seed=args.seed)
+        s10 = new_session(dom)
+        carry.install_tpch(s10.execute, dom, "tpch10", tables,
+                           analyze=False)
+        del tables
+        for t in carry.TPCH_TABLES:
+            s10.execute(f"analyze table {t}")
+        log(f"[mpp-cards] SF10 made, installed and analyzed in "
+            f"{time.perf_counter() - t0:.1f}s")
+        s10.execute("set @@tidb_executor_engine = 'tpu'")
+        s10.execute("set tidb_device_stream_rows = -1")
+        sf10_rows = {}
+        for name in ("q1", "q3"):
+            s10.execute(sqls[name])
+            sf10_rows[name] = (s10.execute(sqls[name])[-1], "resident")
+        s10.execute("set tidb_device_stream_rows = 0")
+        residency.evict_all("--mpp-cards SF10 resident")
+        mesh10_rows = one_card_rows(s10, ("q1", "q3"), sqls)
+    phase_mpp_cards(s, s10, host, mesh_rows, sf10_rows, mesh10_rows, report,
+                    args.seed)
+    log(f"[mpp-cards] launches by card of the phase's timed runs: "
+        f"{ {k: r['launches_by_card'] for k, r in report.items()} }")
 
 
 # -- window functions: K2 -> K4 -> K10 ----------------------------------------
@@ -5150,6 +5693,9 @@ def main(argv=None) -> int:
     ap.add_argument("--first-launch", action="store_true",
                     help="only the [first-launch] calls (phase 1e), in "
                          "this process")
+    ap.add_argument("--mpp-cards", action="store_true",
+                    help="only the [mpp-cards] phase, after the tables "
+                         "and rows it is held to (a run on several cards)")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "tidb_tpu_torch")):
         print("chip_smoke: the tidb_tpu_torch package is not beside this "
@@ -5164,12 +5710,15 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from tidb_tpu_torch.ops import device as pdev
     pdev.set_device("cuda")
-    if args.fold_split or args.exchange_split or args.first_launch:
+    if (args.fold_split or args.exchange_split or args.first_launch
+            or args.mpp_cards):
         try:
             if args.fold_split:
                 fold_split(args.seed)
             elif args.exchange_split:
                 exchange_split(args.seed)
+            elif args.mpp_cards:
+                mpp_cards_alone(args)
             else:
                 first_launch(args.seed)
         except SmokeFailure as e:
@@ -5283,7 +5832,8 @@ def main(argv=None) -> int:
         phase_done("main path")
         phase_compile(s, host_res, card_line())
         phase_done("compile")
-        phase_mpp(s, dom, host_res, mpp_keys, args.seed, report)
+        host_more, mesh_rows = phase_mpp(s, dom, host_res, mpp_keys,
+                                         args.seed, report)
         del mpp_keys
         phase_done("mpp")
         w2 = phase_window(s, n_rows, supp_counts, report)
@@ -5303,8 +5853,11 @@ def main(argv=None) -> int:
         phase_done("sf10")
         phase_hybrid(s10, rate, sf10_rows, report)
         phase_done("hybrid")
-        phase_mpp_sf10(s10, sf10_rows)
+        mesh10_rows = phase_mpp_sf10(s10, sf10_rows)
         phase_done("mpp-sf10")
+        phase_mpp_cards(s, s10, {**host_res, **host_more}, mesh_rows,
+                        sf10_rows, mesh10_rows, report, args.seed)
+        phase_done("mpp-cards")
         # last, and only while the run is well inside its time limit: one
         # library build owned by a compile server (~12-22 s)
         if time.perf_counter() - t_all < LIBRARY_BUILD_BEFORE_S:
@@ -5368,7 +5921,9 @@ def main(argv=None) -> int:
              "ms_split", "bound_ms_split",
              # the [server] path's launches (counters at 0 before it), and
              # the [fleet] workers' (each worker's counters start at 0)
-             "launches_server", "launches_fleet")
+             "launches_server", "launches_fleet",
+             # the visible cards, and [mpp-cards]'s launches by card
+             "cards", "launches_by_card")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report.values()]}))

@@ -8,6 +8,11 @@ with nvcc on first use) and skip elsewhere:
 (``--noconftest`` because tests/conftest.py imports JAX for the
 reference's tests; the card's machine need not have it.)
 
+The cases at the end need two or more cards and skip with fewer: each
+kernel on the last card from a thread whose current device is card 0,
+the wrappers' refusal of tensors on two cards, and K11's steps on a split
+mesh of one shard a card.
+
 Tolerances: the expression VM and the top-k sort (and the window's
 order) must match exactly; the aggregate's, the partial-state merge's
 and the window scan's integers, keys and NULL flags exactly, their float
@@ -1878,3 +1883,113 @@ def test_expand_and_count_launch_counts(dev):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.name.startswith("je_")]
         assert len(kernels) == want, [e.name for e in kernels]
+
+
+# -- another card: each kernel from a thread whose device is card 0 ----------
+# (these need two or more cards and skip with fewer)
+
+@pytest.fixture()
+def last_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    torch.cuda.set_device(0)
+    yield torch.device("cuda", torch.cuda.device_count() - 1)
+    # a launch on another card sets the thread's device back
+    assert torch.cuda.current_device() == 0
+
+
+ON_LAST_CARD = {
+    "expr_vm": (test_expr_vm_matches_interpreter, {}),
+    "groupby_hash": (test_groupby_matches_plain, {"pack": None}),
+    "groupby_buckets": (test_groupby_matches_plain,
+                        {"pack": ((3, 0), (2, 0))}),
+    "sort_topk": (test_topk_matches_plain,
+                  {"case": "two-keys", "cap": (1 << 16)}),
+    "join_probe_sorted": (test_join_probe_matches_plain,
+                          {"layout": "sorted", "mode": "count",
+                           "kind": "inner"}),
+    "join_probe_dense": (test_join_probe_matches_plain,
+                         {"layout": "dense", "mode": "uniq",
+                          "kind": "left"}),
+    "key_range": (test_key_range_matches_plain, {}),
+    "join_expand": (test_join_expand_matches_plain, {"case": "inner"}),
+    "merge_states": (test_merge_states_matches_plain,
+                     {"pack": None, "merge_cap": 1 << 9}),
+    "window_scan": (test_window_scan_matches_plain, {"ordered": True}),
+    "radix_exchange": (test_radix_exchange_matches_plain,
+                       {"n_dest": 8, "cap": 1 << 16, "hot": False}),
+    "shuffle_join": (test_shuffle_join_matches_plain, {"case": "float64"}),
+    "dist_steps": (test_dist_steps_on_the_card_match_the_cpu, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(ON_LAST_CARD))
+def test_kernel_on_the_last_card_matches_plain(last_card, case):
+    """The case's kernel on tensors of the last card, called from a
+    thread whose device is card 0, equals its plain version (the
+    tolerances of the case itself)."""
+    fn, kw = ON_LAST_CARD[case]
+    fn(last_card, **kw)
+
+
+def test_wrappers_refuse_tensors_on_two_cards(last_card):
+    from tidb_tpu_torch.ops.kernels import (join_expand, join_probe,
+                                            radix_exchange, shuffle_join)
+    a = torch.arange(8, device="cuda:0")
+    b = torch.arange(8, device=last_card)
+    m = torch.ones(8, dtype=torch.bool, device=last_card)
+    with pytest.raises(ValueError):
+        groupby_agg.groupby_agg((a,), (m.to("cuda:0"),), (b,), (m,), m, 1,
+                                ("sum_i",), 8)
+    with pytest.raises(ValueError):
+        sort_topk.sort_indices([a, b], [m, m], [False] * 2, [False] * 2,
+                               8, 8, 8)
+    with pytest.raises(ValueError):
+        join_probe.finish(m.to("cuda:0"), m, "inner")
+    with pytest.raises(ValueError):
+        join_expand.compact(m, 8, maps=[a])
+    h, ok = radix_exchange.dest_hash([b], "single")
+    with pytest.raises(ValueError):
+        radix_exchange.partition(h, ok, 2, 4, 8, [a])
+    with pytest.raises(ValueError):
+        shuffle_join.join_sum(b, None, a, b, b)
+
+
+def test_split_mesh_across_cards_matches_the_cpu():
+    """K11's steps on a split mesh of every card (one shard a card,
+    exchanges between cards) equal the local mesh's on the CPU (the plain
+    versions), with launches on each card: integers exact, doubles within
+    rtol 1e-9 / atol 1e-12 (K1's float sums add in another order)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from tidb_tpu_torch.ops.kernels import build
+    from tidb_tpu_torch.parallel import mpp
+    n = torch.cuda.device_count()
+    rng = np.random.default_rng(4)
+    rows = 200_000
+    keys, vals = rng.integers(0, 5000, rows), rng.integers(-99, 99, rows)
+    fvals = rng.standard_normal(rows)
+    valid = rng.random(rows) < 0.9
+    got = []
+    build.CARD_LAUNCHES.clear()
+    for m in (mpp.make_mesh(devices=[f"cuda:{i}" for i in range(n)]),
+              mpp.make_mesh(n, device="cpu")):
+        (k, v, s, f), _pad = mpp.shard_batch(m, keys, valid, vals, fvals)
+        agg = mpp.dist_agg_step(m, ("sum", "min", "sum"), 8192)(k, v, s, s,
+                                                                f)
+        join = mpp.dist_join_agg_step(m, 4096)(k, f, v, k, s, v)
+        got.append([a.cpu() if isinstance(a, torch.Tensor) else
+                    tuple(x.cpu() for x in a) for a in agg]
+                   + [x.cpu() for x in join])
+    assert {c for (_f, c) in build.CARD_LAUNCHES} == set(range(n))
+    (a, b) = got
+    ng = int(a[3])
+    assert ng == int(b[3]) and not bool(a[4])
+    assert torch.equal(a[0][:ng], b[0][:ng])
+    for x, y in list(zip(a[1], b[1])) + list(zip(a[5:], b[5:])):
+        x, y = x.reshape(-1)[:ng], y.reshape(-1)[:ng]
+        assert x.dtype == y.dtype
+        if x.dtype == torch.float64:
+            assert torch.allclose(x, y, rtol=1e-9, atol=1e-12)
+        else:
+            assert torch.equal(x, y)

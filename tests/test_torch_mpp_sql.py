@@ -742,9 +742,12 @@ def test_three_shard_mesh(kits):
 
 
 def test_zero_devices_gives_no_mesh(monkeypatch):
-    """tidb_mpp_devices = 0 gives the port no mesh, however many cards are
-    visible (the local mesh would put them all on one): the query runs on
-    the single-device engine with the host's rows and no fragment."""
+    """With the engine on one device (the CPU here, with four cards
+    reported visible: cards count only for an engine on a card),
+    tidb_mpp_devices = 0 gives the port no mesh: the query runs on the
+    single-device engine with the host's rows and no fragment; 2 gives
+    the local mesh.  tests/test_torch_mpp_split.py holds the rule on
+    several cards."""
     monkeypatch.setattr(pexec.torch.cuda, "device_count", lambda: 4)
     tk = PortKit()
     tk.must_exec("use test")

@@ -5,13 +5,15 @@ reference's MPP fragment execution wired into the SQL path
 store/copr/mpp.go:65 constructs per-node tasks; executor/mpp_gather.go
 streams fragments back; unistore/cophandler/mpp_exec.go runs them).
 
-The mesh (parallel/mpp.py) holds ``tidb_mpp_devices`` logical shards on
-the session's device.  This departs from the reference, whose shard count
-is ``min(tidb_mpp_devices, visible devices)``: here the count comes from
-the sysvar alone, so one card runs the whole SPMD program.  ``0`` gives
-no mesh, on any number of cards: spreading the shards over several cards
-needs a multi-card backend, which this local mesh is not.  On one card
-the local mesh is a bring-up and test mesh, slower than the
+The mesh (parallel/mpp.py) follows the reference's rule where two or
+more cards are visible: ``tidb_mpp_devices`` shards, ``0`` meaning every
+card, capped at the card count, one shard a card (the SPLIT layout), all
+driven from the session's thread; shard 0 is the session's card, where
+the shards' states are folded.  With one card (or on the CPU) it departs
+from the reference, which would give no mesh: ``tidb_mpp_devices`` = n
+>= 2 gives n logical shards on the session's device (the LOCAL layout),
+so one card runs the whole SPMD program; ``0`` gives no mesh there.  On
+one card the local mesh is a bring-up and test mesh, slower than the
 single-device engine.
 
 - The probe-spine fact table is row-sharded over the mesh; every other
@@ -24,9 +26,10 @@ single-device engine.
   programs, K5a's range pass and sorted probe, K4's order, K5b's
   expansion, K1), on its shard's rows and every replicated table.
 - The exchange of the partial states and the final merge are ONE fold of
-  the n shards' states in shard order (ops/kernels/merge_states.py), so
-  ``first`` keeps the reference's row; the overflow flags are reduced
-  over the shards and read by the host once per dispatch.
+  the n shards' states in shard order (ops/kernels/merge_states.py) on
+  shard 0's device, so ``first`` keeps the reference's row; the overflow
+  flags are reduced over the shards there and read by the host once per
+  dispatch.
 
 The single-device amortization stack carries across the mesh, as in the
 reference: per-shard bucket shapes with the live row counts as run-time
@@ -78,28 +81,64 @@ MPP_STATS = {"fragments": 0, "retries": 0, "shuffle_joins": 0,
              "exchange_overflow_retries": 0}
 
 _MESH_CACHE: dict = {}
+#: the devices that stand for the visible cards in mpp_mesh's rule, where
+#: set (set_mesh_devices); None: the cards torch sees
+_MESH_DEVICES = [None]
+
+
+def set_mesh_devices(devices):
+    """Let the list `devices` stand for the visible cards in
+    :func:`mpp_mesh`'s rule (a device a shard slot; one may repeat), or
+    None for the cards torch sees; returns the previous setting.  Two or
+    more give the split layout over them (``["cpu"] * 4`` runs it on the
+    CPU, ``["cuda:0"] * 4`` on one card); one gives the one-card rule on
+    it."""
+    prev = _MESH_DEVICES[0]
+    _MESH_DEVICES[0] = (None if devices is None
+                        else [torch.device(d) for d in devices])
+    return prev
+
+
+def mesh_devices() -> list:
+    """The devices :func:`mpp_mesh` counts, shard 0's first: the list
+    set_mesh_devices gave; else, on a card, every visible card from the
+    session's on (as many as the reference's ``jax.devices()``); else the
+    session's one device."""
+    if _MESH_DEVICES[0] is not None:
+        return list(_MESH_DEVICES[0])
+    d = dev.device()
+    if d.type != "cuda":
+        return [d]
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", (d.index + i) % n) for i in range(n)]
 
 
 def mpp_mesh(ctx):
     """The session's mesh, or None when the MPP engine isn't selected.
-    ``tidb_mpp_devices`` = n >= 2 gives n logical shards on the session's
-    device; anything else (0, "every visible card", included) gives no
-    mesh: a mesh spread over several cards needs a multi-card backend,
-    which the local mesh is not."""
+    With two or more devices (:func:`mesh_devices`), the reference's
+    rule: ``tidb_mpp_devices`` = 0 means every device, n is capped at the
+    device count and n < 2 gives no mesh; the mesh is split, shard i on
+    the i-th device.  With one, n >= 2 gives n logical shards on it (the
+    local layout) and anything else no mesh."""
     if engine_mode(ctx) != "tpu-mpp":
         return None
     try:
         n = int(ctx.get_sysvar("tidb_mpp_devices"))
     except Exception:
         n = 0
+    devs = mesh_devices()
+    if len(devs) >= 2:
+        n = min(n if n > 0 else len(devs), len(devs))
+        devs = devs[:n]
     if n < 2:
         return None  # nothing to distribute over
-    d = dev.device()
-    key = (n, str(d))
+    from ..parallel import Mesh
+    split = len(devs) >= 2
+    key = (n, tuple(str(d) for d in devs), split)
     mesh = _MESH_CACHE.get(key)
     if mesh is None:
-        from ..parallel import make_mesh
-        mesh = _MESH_CACHE[key] = make_mesh(n, axis=AXIS, device=d)
+        mesh = _MESH_CACHE[key] = (Mesh(devs, AXIS) if split
+                                   else Mesh(n, AXIS, devs[0]))
     return mesh
 
 
@@ -121,12 +160,14 @@ _PLACE_LOCK = threading.Lock()
 
 
 def _place_col(col, data, nulls, mesh, sharded, total):
-    """Pad `col`'s host arrays to `total` rows and put them on the mesh's
-    device (one tensor: sharded as ``total // n`` rows per shard, or
-    replicated), cached through the residency ledger.  `total` is a
-    bucket shape (a multiple of the mesh size when sharded): a
-    within-bucket delta re-places (new column identity) but re-dispatches
-    the same pipeline."""
+    """Pad `col`'s host arrays to `total` rows and put them on the mesh
+    (``Mesh.place``: sharded as ``total // n`` rows per shard, or
+    replicated; on a split mesh shard i's rows on its device and a
+    replicated array on every device), cached through the residency
+    ledger, which charges every device's bytes.  `total` is a bucket
+    shape (a multiple of the mesh size when sharded): a within-bucket
+    delta re-places (new column identity) but re-dispatches the same
+    pipeline."""
     from ..ops import residency
     key = (id(col), id(mesh), sharded, total)
     with _PLACE_LOCK:
@@ -141,9 +182,9 @@ def _place_col(col, data, nulls, mesh, sharded, total):
                 _MPP_PLACE_CACHE.popitem(last=False)
     cached = residency.lookup(owner, total)
     if cached is None:
-        d = dev.upload(dev.pad_host(np.asarray(data), total), mesh.device)
-        nl = dev.upload(dev.pad_host(np.asarray(nulls, dtype=bool), total,
-                                     True), mesh.device)
+        d = mesh.place(dev.pad_host(np.asarray(data), total), sharded)
+        nl = mesh.place(dev.pad_host(np.asarray(nulls, dtype=bool), total,
+                                     True), sharded)
         # compare-and-keep publish: a racing placement's loser tensors are
         # accounted as immediately evicted, never leaked off-ledger
         cached = residency.publish(owner, d, nl)
@@ -291,13 +332,13 @@ def _build_mpp_pipeline(mesh, root, leaves, joins, plan, agg_conds,
         lives = [list(n_lives) for _ in range(n)]
         for leaf in leaves:
             lid = leaf.leaf_id
+            part = mesh.shard if lid in sharded else mesh.replica
             for c in cols_of[lid]:
                 d, nl = env[c]
                 for i in range(n):
-                    envs[i][c] = ((mesh.shard(d, i), mesh.shard(nl, i))
-                                  if lid in sharded else (d, nl))
+                    envs[i][c] = (part(d, i), part(nl, i))
             if lid in sharded:
-                psb = env[cols_of[lid][0]][0].shape[0] // n
+                psb = mesh.shard(env[cols_of[lid][0]][0], 0).shape[0]
                 for i in range(n):
                     lives[i][lid] = max(0, min(psb, int(n_lives[lid])
                                                - i * psb))
@@ -310,7 +351,7 @@ def _build_mpp_pipeline(mesh, root, leaves, joins, plan, agg_conds,
                 e = envs[i]
                 rows = e[cols_of[lid][0]][0].shape[0]
                 mask, outs = vm.run(prog, [e[c] for c in prog.in_cols],
-                                    rows, lives[i][lid], mesh.device)
+                                    rows, lives[i][lid], mesh.devices[i])
                 kds = [outs[s][0] for s in prog.key_slots]
                 knl = [outs[s][1] for s in prog.key_slots]
                 hashes.append(_dest_hash(kds, knl, mask))
@@ -330,7 +371,8 @@ def _build_mpp_pipeline(mesh, root, leaves, joins, plan, agg_conds,
             ovfs.append(ovf)
             sovfs.append(sovf)
         # the all_gather of the bounded partial states + the replicated
-        # final merge: one fold, in shard order
+        # final merge: one fold on shard 0's device, in shard order
+        states = mesh.gather_states(states)
         merged = merge_states.merge(states, n_keys, merge_ops, capacity,
                                     key_pack)
         png = mesh.pmax([s[4] for s in states])
@@ -541,9 +583,10 @@ def _run_mpp_impl(plan, agg_conds, root, leaves, joins, ctx, mesh):
     # pipeline: a row-count change inside the bucket is a re-dispatch
     n_lives = tuple(int(leaf.chunk.num_rows) for leaf in leaves)
 
-    # the cache signature carries the mesh shape, the per-leaf bucket
-    # tuple and (inside fragment_sig) every dictionary CONTENT sig
-    sig = ("mpp", n_shards, mesh.device.type,
+    # the cache signature carries the mesh shape, its layout and devices,
+    # the per-leaf bucket tuple and (inside fragment_sig) every dictionary
+    # CONTENT sig
+    sig = ("mpp", n_shards, mesh.key,
            fragment_sig(leaves, joins, agg_conds, plan),
            tuple(sharded_ids),
            tuple(leaf_total[leaf.leaf_id] for leaf in leaves))

@@ -61,7 +61,10 @@ _DEVICE = ["cuda"]
 
 def set_device(dev) -> torch.device:
     """Run the device engine on `dev` ("cuda", "cuda:1", "cpu", or a
-    torch.device).  The CPU runs every kernel's plain PyTorch version."""
+    torch.device).  The CPU runs every kernel's plain PyTorch version.
+    Every kernel launches on its tensors' card whatever the launching
+    thread's current device is (``ops/kernels/build.py launch``), so
+    "cuda:k" runs the engine on card k from any thread."""
     d = torch.device(dev)
     _DEVICE[0] = str(d)
     from . import residency

@@ -16,6 +16,7 @@ time and print the compiler's register and shared-memory report.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import hashlib
@@ -176,6 +177,31 @@ def raw_stream(dev) -> int:
     if get is not None:
         return get(dev.index)
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+#: calls of the library's launchers by (C function, card index), counted
+#: in :func:`launch`: which cards a run's kernels ran on
+CARD_LAUNCHES: "collections.Counter" = collections.Counter()
+
+
+def launch(dev, fn, *args) -> int:
+    """Call the launcher `fn` (a function of :func:`lib`) with `dev` the
+    calling thread's current CUDA device, whatever the thread's own is,
+    and return its ``cudaError_t``.  A launcher launches on the current
+    device and sizes its grid from it, so a kernel on tensors of another
+    card runs there; the thread's device is set back after the call.
+    The device is switched only when it differs (one ``cudaGetDevice``
+    otherwise)."""
+    idx = dev.index
+    CARD_LAUNCHES[(fn.__name__, idx)] += 1
+    cur = torch.cuda.current_device()
+    if idx is None or idx == cur:
+        return fn(*args)
+    torch.cuda.set_device(idx)
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_device(cur)
 
 
 def check(rc: int, what: str):

@@ -11,6 +11,19 @@ typedef unsigned long long u64;
 
 #define TIDB_THREADS 256
 
+// Launch-time caches (a kernel's shared-memory opt-in, the SM count, an
+// occupancy) hold one entry per device: an attribute set on one card is
+// not set on another, and a process may launch on any card.
+#define TIDB_MAX_DEVICES 64
+
+// The calling thread's current device, the index of those caches.
+static inline cudaError_t current_device(int* dev) {
+  cudaError_t e = cudaGetDevice(dev);
+  if (e != cudaSuccess) return e;
+  if (*dev < 0 || *dev >= TIDB_MAX_DEVICES) return cudaErrorInvalidDevice;
+  return cudaSuccess;
+}
+
 // Grid for a grid-stride loop over n items: enough blocks to fill the
 // card (132 SMs x 8 resident blocks of 256 threads), never more than n needs.
 static inline int grid_for(i64 n, int threads = TIDB_THREADS) {

@@ -462,31 +462,35 @@ static int make_args(const i64* h, VmArgs* a, int* rpt, int* stage,
 
 template <int RPT, int STAGE>
 static int launch(const VmArgs& a, size_t shared, cudaStream_t st) {
-  static size_t opted = 48 * 1024;  // dynamic shared bytes allowed so far
-  static int per_sm = -1, sms = 0;
-  static size_t per_sm_for = 0;
+  // per device: the dynamic shared bytes allowed so far (0: the default
+  // 48 KB), the SM count, and the occupancy at the last shared size
+  static size_t opted[TIDB_MAX_DEVICES];
+  static int per_sm[TIDB_MAX_DEVICES], sms[TIDB_MAX_DEVICES];
+  static size_t per_sm_for[TIDB_MAX_DEVICES];
   auto kernel = expr_vm_kernel<RPT, STAGE>;
-  cudaError_t e;
-  if (shared > opted) {
+  int dev = 0;
+  cudaError_t e = current_device(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (shared > 48 * 1024 && shared > opted[dev]) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)shared);
     if (e != cudaSuccess) return (int)e;
-    opted = shared;
+    opted[dev] = shared;
   }
-  if (per_sm < 0 || per_sm_for != shared) {
-    int dev = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-        cudaSuccess)
+  if (per_sm[dev] < 1 || per_sm_for[dev] != shared) {
+    if ((e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
       return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, VM_THREADS,
+    int n = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, VM_THREADS,
                                                       shared);
     if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) per_sm = 1;
-    per_sm_for = shared;
+    per_sm[dev] = n < 1 ? 1 : n;
+    per_sm_for[dev] = shared;
   }
+  const i64 wave = (i64)per_sm[dev] * sms[dev];
   const i64 tiles = (a.n + (i64)VM_THREADS * RPT - 1) / ((i64)VM_THREADS * RPT);
-  const i64 grid = tiles < (i64)per_sm * sms ? tiles : (i64)per_sm * sms;
+  const i64 grid = tiles < wave ? tiles : wave;
   kernel<<<(unsigned)grid, VM_THREADS, shared, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -691,30 +691,32 @@ __global__ void gb_emit(const GbArgs a) {
 
 template <int MODE>
 static cudaError_t accumulate(const GbArgs& a, cudaStream_t st) {
-  static int sms = 0;
-  static i64 opted = 48 * 1024;
+  // per device: the SM count and the dynamic shared bytes allowed so far
+  // (0: the default 48 KB)
+  static int sms[TIDB_MAX_DEVICES];
+  static i64 opted[TIDB_MAX_DEVICES];
   auto kernel = gb_accumulate<MODE>;
-  cudaError_t e;
-  if (a.smem > opted) {
+  int dev = 0;
+  cudaError_t e = current_device(&dev);
+  if (e != cudaSuccess) return e;
+  if (a.smem > 48 * 1024 && a.smem > opted[dev]) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)a.smem);
     if (e != cudaSuccess) return e;
-    opted = a.smem;
+    opted[dev] = a.smem;
   }
   i64 grid = grid_for(a.n, GB_THREADS);
   if (MODE != MODE_GLOBAL) {
     // one resident wave: every block folds and flushes its copies once
-    if (sms == 0) {
-      int dev = 0;
-      if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms[dev] == 0) {
+      e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
       if (e != cudaSuccess) return e;
     }
     int per_sm = 1;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GB_THREADS,
                                                       (size_t)a.smem);
     if (e != cudaSuccess) return e;
-    const i64 wave = (i64)(per_sm > 0 ? per_sm : 1) * sms;
+    const i64 wave = (i64)(per_sm > 0 ? per_sm : 1) * sms[dev];
     if (grid > wave) grid = wave;
   }
   kernel<<<(unsigned)grid, GB_THREADS, (size_t)a.smem, st>>>(a);

@@ -412,31 +412,35 @@ __global__ void jp_gather(const i64* keys, const i64* ord, i64 nv,
 }
 
 static int launch_sorted(const ProbeArgs& a, cudaStream_t st) {
-  static size_t opted = 48 * 1024;
-  static int sms = 0, per_sm = -1;
-  static size_t per_sm_for = 0;
+  // per device: the dynamic shared bytes allowed so far (0: the default
+  // 48 KB), the SM count, and the occupancy at the last sample size
+  static size_t opted[TIDB_MAX_DEVICES];
+  static int sms[TIDB_MAX_DEVICES], per_sm[TIDB_MAX_DEVICES];
+  static size_t per_sm_for[TIDB_MAX_DEVICES];
   const size_t shared = (size_t)a.sample * sizeof(i64);
-  cudaError_t e;
-  if (shared > opted) {
+  int dev = 0;
+  cudaError_t e = current_device(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (shared > 48 * 1024 && shared > opted[dev]) {
     e = cudaFuncSetAttribute(jp_sorted, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)shared);
     if (e != cudaSuccess) return (int)e;
-    opted = shared;
+    opted[dev] = shared;
   }
-  if (per_sm < 0 || per_sm_for != shared) {
-    int dev = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-        cudaSuccess)
+  if (per_sm[dev] < 1 || per_sm_for[dev] != shared) {
+    if ((e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
       return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, jp_sorted,
+    int n = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, jp_sorted,
                                                       TIDB_THREADS, shared);
     if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) per_sm = 1;
-    per_sm_for = shared;
+    per_sm[dev] = n < 1 ? 1 : n;
+    per_sm_for[dev] = shared;
   }
+  const i64 wave = (i64)per_sm[dev] * sms[dev];
   const i64 blocks = (a.n + TIDB_THREADS - 1) / TIDB_THREADS;
-  const i64 grid = blocks < (i64)per_sm * sms ? blocks : (i64)per_sm * sms;
+  const i64 grid = blocks < wave ? blocks : wave;
   jp_sorted<<<(unsigned)grid, TIDB_THREADS, shared, st>>>(a);
   return (int)cudaGetLastError();
 }

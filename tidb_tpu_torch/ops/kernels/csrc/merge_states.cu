@@ -715,15 +715,19 @@ __global__ void __launch_bounds__(MS_THREADS) ms_merge(const MsParams prm) {
 
 static int ms_launch(const MsHead& hd, const i64* table, int n_words,
                      i64 merge_smem, i64 bounds_smem, cudaStream_t st) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
+  // the shared-memory opt-in, once a device
+  static bool attr_set[TIDB_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = current_device(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!attr_set[dev]) {
+    e = cudaFuncSetAttribute(
         ms_merge, cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
     if (e != cudaSuccess) return (int)e;
     e = cudaFuncSetAttribute(
         ms_bounds, cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set[dev] = true;
   }
   MsParams prm;
   prm.h = hd;
@@ -733,8 +737,7 @@ static int ms_launch(const MsHead& hd, const i64* table, int n_words,
     const i64 warps = hd.n_tiles + 1;
     const i64 blocks = (warps + MS_WARPS - 1) / MS_WARPS;
     ms_bounds<<<(unsigned)blocks, MS_THREADS, bounds_smem, st>>>(prm);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   const i64 tails = (hd.cap + MS_TAIL - 1) / MS_TAIL;
   ms_merge<<<(unsigned)(hd.n_tiles + tails), MS_THREADS, merge_smem, st>>>(

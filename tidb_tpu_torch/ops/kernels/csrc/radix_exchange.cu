@@ -60,7 +60,6 @@
 #define RX_ITEMS 8
 #define RX_TILE (RX_THREADS * RX_ITEMS)
 #define RX_FILL_CHUNK 4096
-#define RX_MAX_DEVICES 64
 // workspace (u64 words): the ticket, the ready word (the epoch, once the
 // last tile has written the counts), cnt[RX_MAX_BUCKETS], then the status
 // words, status[t * nb + b]
@@ -484,12 +483,10 @@ extern "C" int radix_partition_run(const i64* hdr, void* stream) {
       return (int)cudaErrorInvalidValue;
   }
   // the most shared memory any call takes, allowed once a device
-  static bool smem_set[RX_MAX_DEVICES];
+  static bool smem_set[TIDB_MAX_DEVICES];
   int device;
-  cudaError_t e = cudaGetDevice(&device);
+  cudaError_t e = current_device(&device);
   if (e != cudaSuccess) return (int)e;
-  if (device < 0 || device >= RX_MAX_DEVICES)
-    return (int)cudaErrorInvalidDevice;
   if (!smem_set[device]) {
     e = cudaFuncSetAttribute(rx_partition,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

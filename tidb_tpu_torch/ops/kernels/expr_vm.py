@@ -795,7 +795,7 @@ def run(prog: Program, inputs, n: int, n_live: int, dev: torch.device):
                      for s, (d, nl) in enumerate(outs)])
     stream = torch.cuda.current_stream(dev).cuda_stream
     from . import build
-    build.check(_kernel()(hdr.ctypes.data, ctypes.c_void_p(stream)),
-                "expr_vm_run")
+    build.check(build.launch(dev, _kernel(), hdr.ctypes.data,
+                             ctypes.c_void_p(stream)), "expr_vm_run")
     LAUNCHES[0] += 1
     return mask, outs

@@ -326,8 +326,8 @@ def groupby_cuda(key_cols, key_nulls, val_cols, val_nulls, mask, n_keys,
     hdr[224:224 + m] = nn_w
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     from . import build
-    build.check(_fn("gb_groups_run", 2)(hdr.ctypes.data, stream),
-                "gb_groups_run")
+    build.check(build.launch(dev, _fn("gb_groups_run", 2), hdr.ctypes.data,
+                             stream), "gb_groups_run")
     ng_t = out_i[(n_keys + m) * cap]
     order = None
     if not direct:
@@ -336,17 +336,17 @@ def groupby_cuda(key_cols, key_nulls, val_cols, val_nulls, mask, n_keys,
         nk = 1 if pack is not None else n_keys
         gk = torch.empty(max(nk * ng, 1), dtype=i64, device=dev)
         gkn = torch.empty(max(nk * ng, 1), dtype=torch.bool, device=dev)
-        build.check(_fn("gb_group_keys_run", 5, (1,))(
-            hdr.ctypes.data, ng, gk.data_ptr(), gkn.data_ptr(), stream),
-            "gb_group_keys_run")
+        build.check(build.launch(
+            dev, _fn("gb_group_keys_run", 5, (1,)), hdr.ctypes.data, ng,
+            gk.data_ptr(), gkn.data_ptr(), stream), "gb_group_keys_run")
         if ng > 0:
             cols = [gk[i * ng:(i + 1) * ng] for i in range(nk)]
             nls = [gkn[i * ng:(i + 1) * ng] for i in range(nk)]
             order = sort_topk._sort_cuda(cols, nls, [False] * nk,
                                          [False] * nk, ng, ng)
             hdr[21] = order.data_ptr()
-    build.check(_fn("gb_emit_run", 2)(hdr.ctypes.data, stream),
-                "gb_emit_run")
+    build.check(build.launch(dev, _fn("gb_emit_run", 2), hdr.ctypes.data,
+                             stream), "gb_emit_run")
     cols = out_i[:(n_keys + m) * cap].view(n_keys + m, cap).unbind(0)
     flags = out_b.view(n_keys + m + 1, cap).unbind(0)
     results = tuple(

@@ -223,7 +223,8 @@ def _run_cuda(cnt, cmask, pos0, pvalid, a1, nv, bvalid, cap, left,
             hdr += [m.data_ptr(), d.data_ptr(), side,
                     int(m.dtype == torch.bool)]
         hdr = np.asarray(hdr, dtype=np.int64)
-        rc = _kernel()(hdr.ctypes.data, ctypes.c_void_p(stream.cuda_stream))
+        rc = build.launch(dev, _kernel(), hdr.ctypes.data,
+                          ctypes.c_void_p(stream.cuda_stream))
     build.check(rc, "join_expand_run")
     LAUNCHES[0] += 1
     return out

@@ -82,7 +82,7 @@ def _launch(name, n_args, hdr, dev):
         fn = _FNS[name] = build.declare(name, n_args)
     stream = torch.cuda.current_stream(dev).cuda_stream
     hdr = np.asarray(hdr, dtype=np.int64)
-    rc = fn(hdr.ctypes.data, ctypes.c_void_p(stream))
+    rc = build.launch(dev, fn, hdr.ctypes.data, ctypes.c_void_p(stream))
     build.check(rc, name)
     LAUNCHES[0] += 1
 

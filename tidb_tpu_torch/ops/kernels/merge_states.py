@@ -343,8 +343,9 @@ def pack_table(parts, n_keys, merge_ops):
             raise ValueError("merge_states: a state's arrays must be "
                              "contiguous, of its capacity, on one device")
         ng = p[4]
-        if ng.dtype != torch.int64 or ng.numel() != 1 or \
-                ng.get_device() != dev:
+        if ng.get_device() != dev:
+            raise ValueError("merge_states: states on different devices")
+        if ng.dtype != torch.int64 or ng.numel() != 1:
             raise TypeError("merge_states: n_groups must be one int64")
         rows.append([ng.data_ptr(), cap] + [t.data_ptr() for t in arrs])
     return np.asarray(rows, dtype=np.int64)
@@ -401,6 +402,7 @@ def _staged_table(table, dev, stream):
 def _fold_cuda(parts, n_keys, merge_ops, merge_cap, pack, epoch_lo=None):
     """One launch's fold of at most :data:`MAX_PARTS` parts; returns
     (FoldState, the launch's epoch)."""
+    from . import build
     dev = parts[0][4].device
     i64 = torch.int64
     m = len(merge_ops)
@@ -437,10 +439,10 @@ def _fold_cuda(parts, n_keys, merge_ops, merge_cap, pack, epoch_lo=None):
                           st.epoch if epoch_lo is None else epoch_lo)
         table_dev = (_staged_table(table, dev, stream)
                      if table.size > TABLE_WORDS else None)
-        rc = _kernel()(hdr.ctypes.data, table.ctypes.data, table.size,
-                       table_dev, ctypes.c_void_p(stream.cuda_stream))
+        rc = build.launch(dev, _kernel(), hdr.ctypes.data,
+                          table.ctypes.data, table.size, table_dev,
+                          ctypes.c_void_p(stream.cuda_stream))
         epoch = st.epoch
-    from . import build
     build.check(rc, "ms_fold_run")
     LAUNCHES[0] += 1
     cols = out_i[:(n_keys + m) * cap].view(n_keys + m, cap).unbind(0)

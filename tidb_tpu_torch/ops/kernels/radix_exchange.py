@@ -159,8 +159,8 @@ def _fn(name):
 def _launch(name, hdr, dev):
     from . import build
     hdr = np.asarray(hdr, dtype=np.int64)
-    build.check(_fn(name)(hdr.ctypes.data,
-                          ctypes.c_void_p(build.raw_stream(dev))), name)
+    build.check(build.launch(dev, _fn(name), hdr.ctypes.data,
+                             ctypes.c_void_p(build.raw_stream(dev))), name)
     LAUNCHES[0] += 1
 
 
@@ -333,7 +333,7 @@ def partition(h, valid, n_dest: int, n_sub: int, cap: int, cols=()):
             flags.data_ptr(), rows.data_ptr(), slot_valid.data_ptr(),
             [(c.data_ptr(), o.data_ptr(), c.element_size())
              for c, o in zip(cols, outs)])
-        rc = fn(hdr.ctypes.data, ctypes.c_void_p(stream))
+        rc = build.launch(dev, fn, hdr.ctypes.data, ctypes.c_void_p(stream))
     build.check(rc, "radix_partition_run")
     LAUNCHES[0] += 1
     return {"rows": rows, "valid": slot_valid, "cols": outs,

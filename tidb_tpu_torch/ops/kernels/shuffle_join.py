@@ -188,7 +188,8 @@ def join_sum(bv, order, pos0, cnt, pv, pvalid=None):
             cnt.data_ptr(), pv.data_ptr(), int(pv.is_floating_point()),
             0 if pvalid is None else pvalid.data_ptr(),
             int(out == torch.float64), plan, epoch, ptrs, res.data_ptr())
-        rc = _FN[0](hdr.ctypes.data, ctypes.c_void_p(stream))
+        rc = build.launch(dev, _FN[0], hdr.ctypes.data,
+                          ctypes.c_void_p(stream))
     build.check(rc, "shuffle_join_run")
     LAUNCHES[0] += 1
     total = (res[:1].view(torch.float64)[0] if out == torch.float64

@@ -252,8 +252,8 @@ def _sort_cuda(cols, nulls, descs, nulls_first, length: int, ng: int,
         hdr += [d.data_ptr(), nl.data_ptr(), int(d.is_floating_point()),
                 int(bool(desc))]
     hdr = np.asarray(hdr, dtype=np.int64)
-    build.check(_fn("sort_keys_stats", 2)(hdr.ctypes.data, stream),
-                "sort_keys_stats")
+    build.check(build.launch(dev, _fn("sort_keys_stats", 2), hdr.ctypes.data,
+                             stream), "sort_keys_stats")
     # scratch for every layout, allocated while the statistics run
     n_tiles = (length + TILE - 1) // TILE
     ws = torch.empty(WS_HEAD + n_tiles * BINS * 8, dtype=torch.uint8,
@@ -273,8 +273,8 @@ def _sort_cuda(cols, nulls, descs, nulls_first, length: int, ng: int,
                 int(bool(desc)), int(bool(nf)), npos, nbits, vpos, vbits,
                 _i64(lo)]
     hdr = np.asarray(hdr, dtype=np.int64)
-    build.check(_fn("sort_keys_run", 2)(hdr.ctypes.data, stream),
-                "sort_keys_run")
+    build.check(build.launch(dev, _fn("sort_keys_run", 2), hdr.ctypes.data,
+                             stream), "sort_keys_run")
     if info is not None:
         n_pass = sum(layout.digits)
         ctrl = ws[WS_CTRL:WS_CTRL + 4 * (2 + 3 * n_pass)].view(torch.int32)

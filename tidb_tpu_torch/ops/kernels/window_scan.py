@@ -541,7 +541,8 @@ def _run_cuda(nb, n_live, idx, part_keys, order_keys, args, funcs, dev):
             [out_i.data_ptr(), 0 if out_b is None else out_b.data_ptr(),
              lay["n_data"], lay["n_null"],
              0 if zero is None else zero.data_ptr()])
-        rc = _kernel()(hdr.ctypes.data, ctypes.c_void_p(stream.cuda_stream))
+        rc = build.launch(dev, _kernel(), hdr.ctypes.data,
+                          ctypes.c_void_p(stream.cuda_stream))
     build.check(rc, "window_scan_run")
     LAUNCHES[0] += 1
     return outs

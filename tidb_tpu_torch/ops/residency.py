@@ -300,7 +300,9 @@ def _auto_budget() -> int:
     This is the counterpart of the reference's ``bytes_limit``: the
     memory the allocator may actually take, never the card's total,
     which also counts the CUDA context and every other process on the
-    card.
+    card.  The engine's card is probed: a split mesh's placements on
+    every card are charged to this one ledger under that card's budget,
+    as the reference keeps one ledger under device 0's ``bytes_limit``.
 
     Same discipline as every config refresh: the memo check and the
     publish happen under _LOCK, the device probe runs OUTSIDE it; a

@@ -1,27 +1,40 @@
-"""MPP distributed operators over a local mesh (reference K11:
+"""MPP distributed operators over a device mesh (reference K11:
 ``tidb_tpu/parallel/mpp.py``).
 
 Reference mapping (as in the reference): fragment exchanges become
 collectives — hash exchange = ``all_to_all``, broadcast = ``all_gather``,
-final merge = ``psum`` / ``pmax`` (here a broadcast side is one replicated
-tensor and the gather + final merge one fold of the shards' states, so
-the local mesh needs no ``all_gather``); parallel partial/final hash
-aggregation is a per-shard partial group-by, a gather of the bounded
-partial states and one final merge; the shuffled hash join
-hash-partitions both sides by key, joins each shard locally and sums.
+final merge = ``psum`` / ``pmax`` (here a broadcast side is a replicated
+array and the gather + final merge one fold of the shards' states on
+shard 0's device); parallel partial/final hash aggregation is a per-shard
+partial group-by, a gather of the bounded partial states and one final
+merge; the shuffled hash join hash-partitions both sides by key, joins
+each shard locally and sums.
 
-The port's mesh is LOCAL: ``n`` logical shards on one device (the
-reference tests its mesh on 8 virtual host devices; a card holds the
-same SPMD program as n shards).  A SHARDED array is one padded tensor of
-``psb * n`` rows whose shard i is the view ``[i*psb, (i+1)*psb)`` (the
-reference's row-slice layout); a REPLICATED array is one tensor that
-every shard reads.  The collectives are tensor copies and reductions
-between kernel launches (:class:`Mesh`), and the host reads a step's
-flags once.  The kernels: K1 (``ops/kernels/groupby_agg.py``) for each
-shard's partial, the partial-state fold (``merge_states.py``) as the
-gather + final merge, kernel A (``radix_exchange.py``) for the hash
-partition, K5a's range pass, K4's order and K5a's sorted probe for the
-local join, and kernel B (``shuffle_join.py``) for its sum.
+A :class:`Mesh` holds one device a shard, as the reference's ``Mesh(
+np.asarray(devs))`` does, in one of two layouts:
+
+* **local** — every shard on one device (the reference tests its mesh on
+  8 virtual host devices; one card holds the same SPMD program as n
+  shards).  A SHARDED array is one padded tensor of ``psb * n`` rows
+  whose shard i is the view ``[i*psb, (i+1)*psb)`` (the reference's
+  row-slice layout); a REPLICATED array is one tensor every shard reads.
+* **split** — one shard a device (a card each, or several shards on
+  one).  A sharded array is a :class:`Split` of n tensors, shard i's on
+  ``devices[i]``; a replicated array a :class:`Split` of one copy a
+  device.
+
+One process drives every shard, as the reference's session thread does:
+each shard's kernels launch on its own card (``ops/kernels/build.py
+launch``), issued one shard after another from the calling thread, so
+the cards overlap wherever nothing synchronises between shards.  The
+collectives are tensor copies (between cards, ``cudaMemcpyPeerAsync``
+through torch's ``copy_``) and reductions between kernel launches, and
+the host reads a step's flags once.  The kernels: K1
+(``ops/kernels/groupby_agg.py``) for each shard's partial, the
+partial-state fold (``merge_states.py``) as the gather + final merge,
+kernel A (``radix_exchange.py``) for the hash partition, K5a's range
+pass, K4's order and K5a's sorted probe for the local join, and kernel B
+(``shuffle_join.py``) for its sum.
 
 Everything is static-shape: partial states are ``capacity``-bounded,
 exchange buckets ``cap``-bounded with overflow counted and reported, so
@@ -40,57 +53,175 @@ import torch
 RADIX_SUB = 4
 
 
-class Mesh:
-    """A 1-D mesh of `n` logical shards on one device.
+class Split(tuple):
+    """An array of a split mesh: a tensor a shard, shard i's on the
+    mesh's ``devices[i]``.  Sharded, tensor i holds shard i's rows;
+    replicated, every tensor is the whole array (shards on one device
+    share its one copy).  ``shape`` and ``nbytes`` are the array's, over
+    every device, so the residency ledger charges each card's bytes."""
 
-    ``shape[axis]`` is the shard count, as on a jax Mesh.  The collectives
-    take and return tensors on ``device``:
+    replicated = False
+
+    def __new__(cls, parts, replicated=False):
+        self = super().__new__(cls, parts)
+        self.replicated = replicated
+        return self
+
+    @property
+    def shape(self):
+        if self.replicated:
+            return self[0].shape
+        return (sum(int(t.shape[0]) for t in self),) + tuple(
+            self[0].shape[1:])
+
+    @property
+    def nbytes(self) -> int:
+        seen = {id(t): t for t in self}
+        return sum(int(t.nbytes) for t in seen.values())
+
+
+class Mesh:
+    """A 1-D mesh of ``n`` shards: ``devices[i]`` is shard i's device.
+
+    ``Mesh(n, device=d)`` is the LOCAL layout (n shards on `d`);
+    ``Mesh(devices)`` (a sequence of devices) the SPLIT layout, one
+    tensor a shard.  ``shape[axis]`` is the shard count, as on a jax
+    Mesh; ``device`` is shard 0's, where the collectives' results land.
 
     * :meth:`all_to_all` — per-shard grids of ``n`` equal blocks in, per
       shard the blocks addressed to it out, in source order (a tiled
       ``lax.all_to_all`` with split and concat axis 0);
     * :meth:`psum` / :meth:`pmax` — one reduction over the shards' 0-d
-      tensors."""
+      tensors, on shard 0's device;
+    * :meth:`gather` — tensors brought to shard 0's device (the
+      all_gather before a replicated final merge)."""
 
-    def __init__(self, n: int, axis: str = "part", device=None):
-        if n < 1:
-            raise ValueError("a mesh needs at least one shard")
+    def __init__(self, n, axis: str = "part", device=None):
+        if isinstance(n, int):
+            if n < 1:
+                raise ValueError("a mesh needs at least one shard")
+            self.split = False
+            d = torch.device(device) if device is not None else None
+            self.devices = (d,) * n
+        else:
+            if device is not None:
+                raise ValueError("a split mesh takes its devices alone")
+            self.devices = tuple(torch.device(d) for d in n)
+            if not self.devices:
+                raise ValueError("a mesh needs at least one shard")
+            self.split = True
         self.axis = axis
-        self.n = n
-        self.device = torch.device(device) if device is not None else None
-        self.shape = {axis: n}
+        self.n = len(self.devices)
+        self.device = self.devices[0]
+        self.shape = {axis: self.n}
+        #: what :meth:`all_to_all` moved: calls, and bytes copied from
+        #: one device to another (0 on the local layout)
+        self.stats = {"all_to_all": 0, "bytes_between_devices": 0}
+
+    @property
+    def key(self) -> tuple:
+        """The layout and the devices: what a pipeline built for this
+        mesh depends on."""
+        return ("split" if self.split else "local",
+                tuple(str(d) for d in self.devices))
 
     def __repr__(self):
+        if self.split:
+            return (f"Mesh({self.n} shards on "
+                    f"{[str(d) for d in self.devices]}, axis={self.axis!r})")
         return f"Mesh({self.n} shards on {self.device}, axis={self.axis!r})"
 
     def shard(self, t, i: int):
-        """Shard i's rows of the sharded tensor `t` (a view)."""
+        """Shard i's rows of the sharded array `t` (a view locally)."""
+        if isinstance(t, Split):
+            return t[i]
         psb = t.shape[0] // self.n
         return t[i * psb:(i + 1) * psb]
+
+    def replica(self, t, i: int):
+        """Shard i's copy of the replicated array `t`."""
+        return t[i] if isinstance(t, Split) else t
+
+    def place(self, arr, sharded: bool):
+        """The host array `arr` (its length a multiple of the shard count
+        when sharded) on the mesh (``ops/device.upload``): one upload
+        locally; split, shard i's rows to ``devices[i]``, or the whole
+        array once to every distinct device."""
+        from ..ops.device import upload
+        if not self.split:
+            return upload(arr, self.device)
+        if sharded:
+            psb = arr.shape[0] // self.n
+            return Split([upload(arr[i * psb:(i + 1) * psb], d)
+                          for i, d in enumerate(self.devices)])
+        copies = {}
+        for d in self.devices:
+            if str(d) not in copies:
+                copies[str(d)] = upload(arr, d)
+        return Split([copies[str(d)] for d in self.devices],
+                     replicated=True)
 
     def all_to_all(self, grids):
         """grids[i]: shard i's send grid, ``n`` equal blocks by
         destination.  Returns the received grid of every shard: block i of
-        shard j's is block j of grids[i].  One copy (``torch.stack`` along
-        the source axis); the results are views of it."""
+        shard j's is block j of grids[i].  Locally one copy
+        (``torch.stack`` along the source axis), the results views of it;
+        split, one grid a destination on its device, each block copied
+        there (asynchronous between cards)."""
         n = self.n
         blk = grids[0].shape[0] // n
-        x = torch.stack([g.view(n, blk) for g in grids], dim=1)
-        return list(x.view(n, n * blk).unbind(0))
+        self.stats["all_to_all"] += 1
+        if not self.split:
+            x = torch.stack([g.view(n, blk) for g in grids], dim=1)
+            return list(x.view(n, n * blk).unbind(0))
+        out = []
+        for j, d in enumerate(self.devices):
+            recv = torch.empty((n, blk), dtype=grids[0].dtype, device=d)
+            for i, g in enumerate(grids):
+                recv[i].copy_(g.view(n, blk)[j], non_blocking=True)
+                if g.device != d:
+                    self.stats["bytes_between_devices"] += (
+                        blk * g.element_size())
+            out.append(recv.view(n * blk))
+        return out
+
+    def gather(self, tensors):
+        """`tensors` on shard 0's device, in order; a tensor there already
+        (every tensor of a local mesh) is returned as it is."""
+        if not self.split:
+            return list(tensors)
+        return [t if t.device == self.device
+                else t.to(self.device, non_blocking=True) for t in tensors]
+
+    def gather_states(self, states):
+        """K1 partial states (keys, key NULL flags, results, result NULL
+        flags, n_groups, valid) on shard 0's device, for the fold there."""
+        if not self.split:
+            return list(states)
+
+        def move(part):
+            if isinstance(part, tuple):
+                return tuple(self.gather(part))
+            return self.gather([part])[0]
+        return [s if s[4].device == self.device
+                else tuple(move(p) for p in s) for s in states]
 
     def psum(self, scalars):
-        return torch.stack(list(scalars)).sum()
+        return torch.stack(self.gather(list(scalars))).sum()
 
     def pmax(self, scalars):
-        return torch.stack(list(scalars)).max()
+        return torch.stack(self.gather(list(scalars))).max()
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "part",
-              device=None) -> Mesh:
-    """A local mesh of `n_devices` shards (default: one per visible CUDA
-    card, as many as the reference's ``jax.devices()``) on `device`
-    (default: the port's device, ``ops/device.device()`` — CUDA unless
-    the caller asked for the CPU)."""
+              device=None, devices=None) -> Mesh:
+    """`devices` given: a split mesh, shard i on ``devices[i]``.  Else a
+    local mesh of `n_devices` shards (default: one per visible CUDA card,
+    as many as the reference's ``jax.devices()``) on `device` (default:
+    the port's device, ``ops/device.device()`` — CUDA unless the caller
+    asked for the CPU)."""
+    if devices is not None:
+        return Mesh(list(devices), axis)
     if device is None:
         from ..ops import device as dev
         device = dev.device()
@@ -101,7 +232,7 @@ def make_mesh(n_devices: int | None = None, axis: str = "part",
 
 def shard_batch(mesh: Mesh, *arrays, axis: str = "part"):
     """Pad each 1-D array to a multiple of the mesh size and put it on the
-    mesh's device as a sharded tensor.  Returns (padded_tensors,
+    mesh sharded (:meth:`Mesh.place`).  Returns (padded_arrays,
     valid_mask), as the reference's ``shard_batch``."""
     n_shards = mesh.shape[axis]
     n = np.asarray(arrays[0]).shape[0]
@@ -111,11 +242,11 @@ def shard_batch(mesh: Mesh, *arrays, axis: str = "part"):
         a = np.asarray(a)
         if pad:
             a = np.concatenate([a, np.zeros(pad, dtype=a.dtype)])
-        out.append(torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device))
+        out.append(mesh.place(a, True))
     valid = np.ones(n + pad, dtype=bool)
     if pad:
         valid[n:] = False
-    return out, torch.from_numpy(valid).to(mesh.device)
+    return out, mesh.place(valid, True)
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +351,8 @@ def dist_agg_step(mesh: Mesh, kinds: tuple, capacity: int,
                                [mesh.shard(v, i) for v in vals], kinds,
                                capacity) for i in range(n)]
         from ..ops.kernels import merge_states
-        ops = _agg_ops(vals, kinds)
+        ops = _agg_ops([mesh.shard(v, 0) for v in vals], kinds)
+        states = mesh.gather_states(states)
         out = merge_states.merge(states, 1, ops, capacity)
         png = mesh.pmax([s[4] for s in states])
         overflow = torch.maximum(png, out[4]) > capacity
