@@ -5,6 +5,17 @@
 
 Phases, each fatal on failure:
 
+0. ``[lint]`` — the port's static checker (``python -m
+   tidb_tpu_torch.lint --json``) in a process of its own while the
+   kernels build (phase 1; a build failure stops it and is the run's
+   error), with the device-side rules only (``LINT_RULES``: kernel
+   launches through
+   ``ops/kernels/build.py launch``, device slots, supervised dispatch,
+   ``run_device``'s shape, host syncs in pipeline bodies); a finding, a
+   stale allowlist entry or a non-zero exit fails the run.  One line
+   with the rules, findings, allowlisted count and seconds, and the C
+   functions the lint finds declared in ``ops/kernels/`` (the whole lint
+   runs with the CPU tests, ``tests/test_torch_lint.py``);
 1. build — the CUDA kernels under tidb_tpu_torch/ops/kernels/csrc, with
    nvcc for sm_90a (one process per source, started together);
 2. SQL set-up — ``bootstrap_domain()`` / ``new_session()``, the eight
@@ -57,17 +68,21 @@ Phases, each fatal on failure:
    order) and one float key against torch.sort(stable=True) (exact), with
    its radix passes and bits per word, K5a the join
    probe on Q3's dense unique probes and Q9's sorted partsupp probe
-   (exact), K5b the CSR expansion of orders into lineitem at SF1 —
+   (exact), K5a's finish on the match flags of the LEFT JOIN's ON
+   residual (phase 4's ``left_on``) for every join kind, with and
+   without a validity mask (exact), K5b the CSR expansion of orders into lineitem at SF1 —
    inner, left, and with the total over the capacity (exact), K5b's count
    of each join query's final row mask (exact, against ``mask.sum()``),
    K7 the standalone join match of orders and lineitem keys (exact); each
    timed with CUDA events beside its bound;
 4. the main path — every launch counter set to 0, then Q1, Q6, the
-   top-N, Q3, Q5, Q9, Q18 and a join without an aggregate (K7) under
-   ``tidb_executor_engine = 'tpu'``; each query must launch its kernels
-   (K1 and K2; the top-N, Q3 and Q18 also K4; the join queries K5a and
-   K5b, and K5b's count of the final mask; the join without an aggregate
-   K7, whose every call launches K4, K5a and K5b); the rows must
+   top-N, Q3, Q5, Q9, Q18, a join without an aggregate (K7) and a LEFT
+   JOIN of orders and customer with an ON residual over both sides
+   (``left_on``) under ``tidb_executor_engine = 'tpu'``; each query must
+   launch its kernels (K1 and K2; the top-N, Q3 and Q18 also K4; the join
+   queries K5a, K5b's count of the final mask and, but ``left_on``'s
+   unique probe, K5b; ``left_on`` K5a's finish; the join without an
+   aggregate K7, whose every call launches K4, K5a and K5b); the rows must
    equal the host engine's, with the same result types (every cell exact
    but in DOUBLE or FLOAT columns, which compare within rtol 1e-9 /
    atol 1e-12);
@@ -272,6 +287,13 @@ Phases, each fatal on failure:
    cards and launches on a second card were not exercised.  ``python3
    chip_smoke.py --mpp-cards`` runs the phase alone after the tables and
    rows it is held to (a run on several cards);
+10c. ``[lint]`` launchers — every C function counted in
+   ``build.CARD_LAUNCHES`` in this process over the whole run (the
+   phases clear it; ``_LaunchTally`` keeps the names; ``[mpp-cards]``'s
+   timing of the guard itself leaves no count) must be one the lint
+   found declared, and every declared one must have been launched (each
+   is held against its plain version by some phase); a line lists the
+   declared ones the run never launched;
 11. report — the card's name and power limit, a ``kernels`` JSON line
    (``launches_server`` and ``launches_fleet`` beside each row's main-path
    ``launches``; ``cards`` and ``[mpp-cards]``'s ``launches_by_card``),
@@ -284,6 +306,7 @@ the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import statistics
@@ -381,9 +404,21 @@ from orders, lineitem
 where o_orderkey = l_orderkey and o_orderdate = '1995-03-15'
 order by o_orderkey, l_extendedprice, l_discount"""
 
+#: a LEFT JOIN whose ON clause holds a residual over both sides: the
+#: fragment probes customer's unique keys, folds the residual into the
+#: match, and K5a's finish (join_probe.finish) turns the match into the
+#: valid and no-match rows of every order
+LEFT_ON = """
+select c_mktsegment, count(*) as n, count(c_custkey) as matched,
+       sum(o_totalprice) as total
+from orders left join customer
+  on o_custkey = c_custkey and o_totalprice > c_nationkey * 10000
+group by c_mktsegment order by c_mktsegment"""
+
 QUERIES = (("q1", Q1), ("q6", Q6), ("topn", TOPN), ("q3", Q3), ("q5", Q5),
-           ("q9", Q9), ("q18", Q18), ("join_no_agg", JOIN_NO_AGG))
-JOIN_FRAGMENTS = ("q3", "q5", "q9", "q18")
+           ("q9", Q9), ("q18", Q18), ("join_no_agg", JOIN_NO_AGG),
+           ("left_on", LEFT_ON))
+JOIN_FRAGMENTS = ("q3", "q5", "q9", "q18", "left_on")
 
 #: the host engine's text of a query, where it differs: on bulk-loaded
 #: tables (columnar only) the host planner's index join on part and
@@ -607,6 +642,123 @@ def ptxas_entries(text):
     return out
 
 
+#: the lint rules of the device side, run at the start of the run
+LINT_RULES = ("launch-confinement", "device-slot-confinement",
+              "supervised-confinement", "run-device-shape",
+              "pipeline-host-sync")
+
+
+class _LaunchTally(collections.Counter):
+    """``build.CARD_LAUNCHES`` for the whole run: a Counter whose
+    ``clear`` (the phases zero it before each measured run) keeps the
+    C functions counted so far."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def clear(self):
+        self.seen.update(f for f, _card in self)
+        super().clear()
+
+    def names(self) -> set:
+        return self.seen | {f for f, _card in self}
+
+
+def lint_start():
+    """[lint], first half: the port's lint over this checkout with
+    LINT_RULES in a child process, its report read by a thread, so the
+    kernels build meanwhile.  Returns what :func:`lint_finish` takes."""
+    import threading
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tidb_tpu_torch.lint", "--json", "--rules",
+         ",".join(LINT_RULES)], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    box = {}
+
+    def read_report():
+        try:
+            box["out"], box["err"] = proc.communicate(timeout=600)
+        finally:
+            box["s"] = time.perf_counter() - t0
+    reader = threading.Thread(target=read_report, daemon=True)
+    reader.start()
+    return proc, reader, box
+
+
+def kernel_launchers() -> tuple:
+    """The lint's view of the launchers declared in ops/kernels/
+    (``declared_launchers`` over those files alone: launch-confinement
+    fails a declare anywhere else)."""
+    import ast
+    from tidb_tpu_torch.lint.engine import Context, SourceFile
+    from tidb_tpu_torch.lint.rules.confinement import declared_launchers
+    kdir = os.path.join(HERE, "tidb_tpu_torch", "ops", "kernels")
+    files = []
+    for name in sorted(os.listdir(kdir)):
+        if name.endswith(".py"):
+            path = os.path.join(kdir, name)
+            with open(path) as f:
+                text = f.read()
+            files.append(SourceFile("ops/kernels/" + name, path, text,
+                                    ast.parse(text, filename=path)))
+    return declared_launchers(Context(files, HERE))
+
+
+def lint_finish(proc, reader, box) -> dict:
+    """[lint], second half: wait for the report (stopping the child if it
+    is still running) and fail on a finding, a stale allowlist entry or
+    a non-zero exit.  Returns {C function: "file:line"} of the launchers
+    declared in ops/kernels/."""
+    reader.join(620)
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    out, err = box.get("out", ""), box.get("err", "")
+    try:
+        rep = json.loads(out)
+    except ValueError:
+        fail(f"[lint] exit {proc.returncode} with no JSON report: "
+             f"{(out + err)[-2000:]}")
+    declared, unread = kernel_launchers()
+    c = rep["counts"]
+    log(f"[card] {card_line()}")
+    log(f"[lint] rules {','.join(rep['rules'])}: findings {c['findings']}, "
+        f"allowlisted {c['allowlisted']}, stale {c['stale_allowlist']}, "
+        f"{box['s']:.2f}s (exit {proc.returncode}); C functions declared in "
+        f"ops/kernels/: {len(declared)}")
+    for f in rep["findings"]:
+        log(f"[lint] {f['file']}:{f['line']}: [{f['rule']}] {f['msg']}")
+    if proc.returncode != 0 or not rep["ok"]:
+        fail(f"[lint] the device-side rules are not clean (exit "
+             f"{proc.returncode}, {c['findings']} findings, "
+             f"{c['stale_allowlist']} stale entries)")
+    if unread or not declared:
+        fail(f"[lint] launchers the lint cannot name: {unread}")
+    return declared
+
+
+def check_launchers(declared: dict):
+    """[lint]: the C functions launched in this process are the ones
+    declared: a launch of an undeclared one, or a declared one that no
+    phase launched (a kernel held against nothing), fails the run."""
+    from tidb_tpu_torch.ops.kernels import build
+    launched = build.CARD_LAUNCHES.names()
+    unknown = sorted(launched - set(declared))
+    never = sorted(set(declared) - launched)
+    log(f"[lint] C functions launched in this run: {len(launched)}, every "
+        f"one declared: {not unknown}")
+    log(f"[lint] declared, never launched in this process: "
+        f"{', '.join(never) or 'none'}")
+    if unknown:
+        fail(f"[lint] launched C functions the lint found no declare of: "
+             f"{unknown}")
+    if never:
+        fail(f"[lint] declared C functions no phase launched: "
+             f"{[f'{n} ({declared[n]})' for n in never]}")
+
+
 def phase_build():
     from tidb_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
@@ -639,6 +791,7 @@ def phase_sql_setup(args, captured, joins):
     from tidb_tpu_torch import carry
     from tidb_tpu_torch.executor import device_exec, device_join
     from tidb_tpu_torch.ops import device as pdev
+    from tidb_tpu_torch.ops.kernels import join_probe
     from tidb_tpu_torch.session import bootstrap_domain, new_session
     t0 = time.perf_counter()
     tables = carry.gen_tpch(SF, seed=args.seed)
@@ -681,10 +834,18 @@ def phase_sql_setup(args, captured, joins):
             build=build_keys, probe=probe_keys)
         return match_fn(build_keys, probe_keys)
 
+    finish_fn = join_probe.finish
+
+    def observe_finish(pvalid, hit, kind):
+        joins.setdefault(current[0], {})[("finish", None, None, None)] = \
+            dict(pvalid=pvalid, hit=hit, kind=kind)
+        return finish_fn(pvalid, hit, kind)
+
     current = [None]
     device_exec.PIPELINE_OBSERVER[0] = observe
     device_join.FRAGMENT_OBSERVER[0] = observe_join
     pdev.device_join_match = observe_match
+    join_probe.finish = observe_finish
     try:
         for name, sql in QUERIES:
             current[0] = name
@@ -698,6 +859,7 @@ def phase_sql_setup(args, captured, joins):
         device_exec.PIPELINE_OBSERVER[0] = None
         device_join.FRAGMENT_OBSERVER[0] = None
         pdev.device_join_match = match_fn
+        join_probe.finish = finish_fn
     for name, sql in QUERIES:
         if name == "join_no_agg":
             if ("match",) not in joins.get(name, {}):
@@ -1239,6 +1401,51 @@ def probe_samples(ev, what):
         join_probe.SAMPLE = default
 
 
+def join_finish(joins, report):
+    """K5a's finish on the match flags the LEFT JOIN's ON residual gave
+    (the ``left_on`` warm-up's call), against its plain version for every
+    join kind with and without a validity mask (exact), timed for the
+    main path's kind beside its bound."""
+    import torch
+    from tidb_tpu_torch.ops.kernels import join_probe
+    ev = joins["left_on"].get(("finish", None, None, None))
+    if ev is None:
+        fail("K5a finish: left_on's ON residual ran no finish")
+    pv, hit, kind = ev["pvalid"], ev["hit"], ev["kind"]
+    for k in join_probe.KINDS:
+        for v in (pv, None):
+            got = join_probe.finish(v, hit, k)
+            want = join_probe.finish_plain(v, hit, k)
+            torch.cuda.synchronize()
+            same_outputs(list(got), list(want),
+                         f"K5a finish {k}{'' if v is pv else ' no pvalid'}")
+
+    def fin_k():
+        return join_probe.finish(pv, hit, kind)
+
+    def fin_p():
+        return join_probe.finish_plain(pv, hit, kind)
+
+    ms, plain_ms = cuda_ms(fin_k), cuda_ms(fin_p)
+    valid, nohit, n_valid = fin_k()
+    # the flags read once, the two masks and the count written once
+    bound = (nbytes([t for t in (pv, hit) if t is not None])
+             + nbytes([valid, nohit, n_valid])) / HBM_BYTES_PER_S * 1e3
+    split = call_split(fin_k)
+    if not split[1]:
+        # the device trace kept none of the calls: not measured
+        split = (None, None, split[2])
+    log(f"[K5a] left_on finish ({kind}): n={hit.shape[0]}, "
+        f"{int(n_valid)} valid, {int(nohit.sum())} with no match: exact "
+        f"for each of {len(join_probe.KINDS)} join kinds, with and without "
+        f"validity; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{bound:.4f} ms); {split_text(split)}")
+    report["join_finish"].update(dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        device_ms=split[0], device_ops_per_call=split[1],
+        host_ms=split[2]))
+
+
 def phase_join_kernels(args, joins, keys, report):
     import numpy as np
     import torch
@@ -1298,6 +1505,8 @@ def phase_join_kernels(args, joins, keys, report):
                                  device_ops_per_call=split[1],
                                  host_ms=split[2])
     report["join_probe"].update(probe_row)
+
+    join_finish(joins, report)
 
     # -- K2's LOADG on Q3's post-join program --------------------------------
     ev = joins["q3"][("vm", "final", None, None)]
@@ -1483,10 +1692,12 @@ def phase_main_path(dom, s, n_rows, report):
     from tidb_tpu_torch.ops.kernels import (expr_vm, groupby_agg,
                                             join_expand, join_probe,
                                             sort_topk)
-    # K5b's count and K7 are entries over the kernels' own counters: a
-    # call of either counts once where the counters of the kernels it
-    # runs moved (K5b's by one; K7's K4, K5a and K5b each)
-    composite = {"join_expand_count": [0], "join_match": [0]}
+    # K5b's count, K5a's finish and K7 are entries over the kernels' own
+    # counters: a call of one counts once where the counters of the
+    # kernels it runs moved (K5b's or K5a's by one; K7's K4, K5a and K5b
+    # each)
+    composite = {"join_expand_count": [0], "join_match": [0],
+                 "join_finish": [0]}
     counters = {"expr_vm": expr_vm.LAUNCHES, "groupby_agg":
                 groupby_agg.LAUNCHES, "sort_topk": sort_topk.LAUNCHES,
                 "join_probe": join_probe.LAUNCHES,
@@ -1497,8 +1708,18 @@ def phase_main_path(dom, s, n_rows, report):
             "q3": frag + ["sort_topk"], "q5": frag, "q9": frag,
             "q18": frag + ["sort_topk"],
             "join_no_agg": ["join_match", "sort_topk", "join_probe",
-                            "join_expand"]}
+                            "join_expand"],
+            "left_on": agg + ["join_probe", "join_expand_count",
+                              "join_finish"]}
     count_fn, match_fn = join_expand.count, pdev.device_join_match
+    finish_fn = join_probe.finish
+
+    def counted_finish(pvalid, hit, kind):
+        before = join_probe.LAUNCHES[0]
+        out = finish_fn(pvalid, hit, kind)
+        if join_probe.LAUNCHES[0] == before + 1:
+            composite["join_finish"][0] += 1
+        return out
 
     def counted_count(mask):
         before = join_expand.LAUNCHES[0]
@@ -1534,6 +1755,7 @@ def phase_main_path(dom, s, n_rows, report):
     loadg = 0
     device_join.build_join_index = timed_build
     join_expand.count, pdev.device_join_match = counted_count, counted_match
+    join_probe.finish = counted_finish
     try:
         for name, sql in QUERIES:
             dev_res[name] = run_counted(s, name, sql, counters, need,
@@ -1544,6 +1766,7 @@ def phase_main_path(dom, s, n_rows, report):
     finally:
         device_join.build_join_index = build_index
         join_expand.count, pdev.device_join_match = count_fn, match_fn
+        join_probe.finish = finish_fn
     dev_res = {k: v[0] for k, v in dev_res.items()}
     log("[main] launch counts above; the timing below is not counted")
     for k, c in counters.items():
@@ -2790,6 +3013,9 @@ def guard_us(n_cards, calls=20000):
         other = torch.device("cuda", n_cards - 1)
         out["another card"] = per_call(
             lambda: build.launch(other, fn, 0)) - direct
+    # the timing calls are no kernel's launches: they leave no count
+    for key in [k for k in build.CARD_LAUNCHES if k[0] == fn.__name__]:
+        del build.CARD_LAUNCHES[key]
     build.CARD_LAUNCHES.clear()
     return direct, out
 
@@ -5763,6 +5989,13 @@ def main(argv=None) -> int:
                               "replaces": "tidb_tpu/executor/"
                                           "device_join.py:892",
                               "bound_by": "bytes", "library_ms": None},
+        "join_finish": {"name": "K5a join_probe finish (a LEFT JOIN's "
+                                "match after its ON residual)",
+                        "route": "cuda",
+                        "source": "tidb_tpu_torch/ops/kernels/csrc/"
+                                  "join_probe.cu",
+                        "replaces": "tidb_tpu/executor/device_join.py:779",
+                        "bound_by": "bytes", "library_ms": None},
         "join_match": {"name": "K7 device_join_match (K4 + K5a + K5b)",
                        "route": "cuda",
                        "source": "tidb_tpu_torch/ops/kernels/csrc/"
@@ -5806,9 +6039,19 @@ def main(argv=None) -> int:
         now = time.perf_counter()
         log(f"[phase] {name}: {now - t_phase[0]:.1f}s")
         t_phase[0] = now
+    from tidb_tpu_torch.ops.kernels import build as kbuild
+    kbuild.CARD_LAUNCHES = _LaunchTally()
     try:
-        phase_build()
-        phase_done("build")
+        lint = lint_start()
+        try:
+            phase_build()
+        except BaseException:
+            # the build's error is the run's: the lint's child goes
+            lint[0].kill()
+            lint[0].wait()
+            raise
+        declared = lint_finish(*lint)
+        phase_done("lint and build")
         phase_fold_split(args)
         phase_done("fold split")
         phase_exchange_split(args, report)
@@ -5867,6 +6110,7 @@ def main(argv=None) -> int:
                 f"at {time.perf_counter() - t_all:.1f}s, past "
                 f"{LIBRARY_BUILD_BEFORE_S:.0f}s")
         phase_done("library build")
+        check_launchers(declared)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

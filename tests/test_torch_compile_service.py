@@ -17,8 +17,11 @@ call by thread, so a test can show that a host-served execution called
 no kernel on the query's thread and that the flipped one did.
 
 The reference's ``TestJitConfinementLint`` (raw ``jax.jit`` confined to
-the compile layer) waits for the port's ``lint/`` (ROADMAP queue 1
-item 4), which will re-target it to raw kernel launches.
+the compile layer) has its counterpart in ``TestLaunchConfinementLint``:
+the port compiles no pipeline, and its gate is the kernel launch — the
+library loaded and its launchers declared only in ``ops/kernels/``, and
+every launcher called through ``ops/kernels/build.py launch``
+(``launch-confinement`` of ``tidb_tpu_torch/lint``).
 """
 
 import json
@@ -588,3 +591,18 @@ class TestThreadPropagation:
                     tracing.verify_drained()["ok"])
         assert both({"ref": None, "port": None}, body) == (
             "sampled", 1, "child", True, "compile.bg", True, True)
+
+
+# -- the compile layer's gate ---------------------------------------------
+
+class TestLaunchConfinementLint:
+    def test_kernel_launches_confined_to_build_launch(self):
+        """Registry rule (tidb_tpu_torch/lint rules/confinement.py): the
+        kernel library is loaded and its launchers declared only in
+        ops/kernels/, and every launcher call goes through build.launch,
+        which runs it under its tensors' card and counts it — the port's
+        counterpart of the reference's raw jax.jit confinement."""
+        from tidb_tpu_torch.lint import RULES, run_rule
+        findings = run_rule("launch-confinement")
+        assert not findings, [f.to_json() for f in findings]
+        assert RULES["launch-confinement"].allowlistable is False

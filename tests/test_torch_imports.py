@@ -266,3 +266,25 @@ def test_fleet_modules_are_the_ports(tmp_path):
     assert '"tidb_tpu_torch.fabric.worker"' in text
     assert '"tidb_tpu_torch.fabric.compile_server"' in text
     assert "tpufab-" not in text
+
+
+def test_port_lint_runs_with_jax_blocked():
+    """The port's lint imports neither JAX nor the reference (the card's
+    machine has no JAX): ``python -m tidb_tpu_torch.lint --list`` exits 0
+    with both blocked, and lists the port's 20 rules."""
+    proc = _run(textwrap.dedent("""
+        import runpy, sys
+        sys.argv = ["python -m tidb_tpu_torch.lint", "--list"]
+        try:
+            runpy.run_module("tidb_tpu_torch.lint", run_name="__main__")
+        except SystemExit as e:
+            assert not [m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu")]
+            raise
+    """))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    rules = [ln.split()[0] for ln in proc.stdout.splitlines() if ln.strip()]
+    assert len(rules) == 20
+    assert "launch-confinement" in rules and "pipeline-host-sync" in rules
+    assert "jit-confinement" not in rules
+    assert "traced-value-hazard" not in rules

@@ -21,8 +21,9 @@ the concurrent case, without the split between evictions and the
 collector's releases, which timing decides).  One
 edit on the port's side: ``test_publish_race_compare_and_keep`` races a
 publish of torch tensors where the reference's are ``jax.numpy`` arrays.
-Not here: ``TestDeviceCacheLint`` (the ``._device`` containment rule)
-waits for the port's ``lint/`` (ROADMAP queue 1 item 4).
+``TestDeviceCacheLint`` runs the ``._device`` containment rule over each
+package's own tree with its own lint (``tidb_tpu_torch/lint`` on the
+port's side).
 """
 
 import pytest
@@ -131,7 +132,6 @@ globals().update(dual(
     # both packages' ledgers start empty (the bodies' own isolation
     # evicts what earlier tests of the process left resident)
     reset=lambda m: m.residency.evict_all("dual test reset"),
-    exclude=("TestDeviceCacheLint",),
     # four threads upload against one budget: which entries the LRU
     # evicts and which the collector releases first is timing
     unsteady={"TestTenantResidency.test_concurrent_multitenant_ledger_"

@@ -8,9 +8,9 @@ record of the two runs must be equal: how far each counter of
 ``scheduler.snapshot()`` moved (but the split of grants between the fast
 path and the queue, which thread timing decides, and the wait times).
 
-Not here: ``TestNoDirectDispatchLint`` (the supervised-dispatch
-confinement rule) waits for the port's ``lint/`` (ROADMAP queue 1
-item 4).
+``TestNoDirectDispatchLint`` runs the supervised-dispatch confinement
+rule over each package's own tree with its own lint
+(``tidb_tpu_torch/lint`` on the port's side).
 """
 
 import pytest
@@ -32,5 +32,4 @@ def _record(m):
             and k not in ("fast_grants", "queued")}
 
 
-globals().update(dual("test_scheduler.py", record=_record,
-                      exclude=("TestNoDirectDispatchLint",)))
+globals().update(dual("test_scheduler.py", record=_record))

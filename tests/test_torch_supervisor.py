@@ -15,9 +15,10 @@ and the DDL workers the module's domains start are stopped after it
 One edit on the port's side: ``test_mpp_fragment_hang`` sets
 ``tidb_mpp_devices = 8`` first, since on one device (here the CPU) the
 port's mesh takes its shard count from that sysvar and the default 0
-gives no mesh (ROADMAP queue 3, the mesh divergence).  Not here:
-``TestRunDeviceShapeLint`` (the run_device ``shape=`` rule) waits for
-the port's ``lint/`` (ROADMAP queue 1 item 4).
+gives no mesh (ROADMAP queue 3, the mesh divergence).
+``TestRunDeviceShapeLint`` runs the run_device ``shape=`` rule over each
+package's own tree with its own lint (``tidb_tpu_torch/lint`` on the
+port's side).
 """
 
 import time
@@ -53,7 +54,6 @@ def _settle(m):
 
 globals().update(dual(
     "test_supervisor.py", record=_record, reset=_settle,
-    exclude=("TestRunDeviceShapeLint",),
     patches=[('''    def test_mpp_fragment_hang(self, tk):
         tk.must_exec("set tidb_executor_engine = 'tpu-mpp'")''',
               '''    def test_mpp_fragment_hang(self, tk):

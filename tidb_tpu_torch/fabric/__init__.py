@@ -24,9 +24,9 @@ The pieces:
   anywhere in the fleet dispatch ONE device call; the result ships back
   through a per-fragment mmap page.
 * :mod:`~tidb_tpu_torch.fabric.compile_server` / ``compile_client`` — the
-  separated compile service's seat; the port's server is still a
-  stand-in that exits 2 (ROADMAP queue 1, the compile layer), so a
-  fleet runs with ``compile_server=False``.
+  separated compile service: one server process builds the kernel
+  library once per source digest for every worker and records the
+  fleet's fragment signatures.
 * :mod:`~tidb_tpu_torch.fabric.state` — this process's fabric identity (slot,
   coordinator handle, compile-server address) + the ``fabric_*`` gauges.
 * :mod:`~tidb_tpu_torch.fabric.region` / :mod:`~tidb_tpu_torch.fabric.blob` /
@@ -47,7 +47,9 @@ Confinement: direct ``multiprocessing.shared_memory`` use belongs to
 this package, and so does raw ``socket`` use for coordination (the
 MySQL wire protocol in ``server/`` is the one other legitimate socket
 owner) — every other layer coordinates through :mod:`state`'s typed
-hooks.
+hooks.  ``python -m tidb_tpu_torch.lint`` enforces both
+(``shared-memory-confinement``, ``socket-confinement``); neither rule
+takes an allowlist entry.
 """
 
 from __future__ import annotations
