@@ -48,7 +48,7 @@ Phases, each fatal on failure:
 1e. ``[first-launch]`` — ``python3 chip_smoke.py --first-launch`` in a
    process of its own that has run nothing on the card: the CUDA
    context's and the kernel library's load time, then every kernel's
-   wrapper (K2, K1, K4, K5a, K5b, the fold, K10, kernel A's hash and
+   wrapper (K2, K1, K4, K5a, K5b, K7, the fold, K10, kernel A's hash and
    partition, kernel B) called twice on small seeded tensors, each
    call's ms (the first pays the kernel's module load, its attributes,
    workspaces and the allocator's growth: what a background warm takes
@@ -69,21 +69,38 @@ Phases, each fatal on failure:
    order) and one float key against torch.sort(stable=True) (exact), with
    its radix passes and bits per word, K5a the join
    probe on Q3's dense unique probes and Q9's sorted partsupp probe
-   (exact), K5a's finish on the match flags of the LEFT JOIN's ON
-   residual (phase 4's ``left_on``) for every join kind, with and
-   without a validity mask (exact), K5b the CSR expansion of orders into lineitem at SF1 —
+   (exact), K5a's finish as the epilogue of the LEFT JOIN's ON residual
+   launch (phase 4's ``left_on``: K2's program and inputs as the
+   warm-up gave them) against the interpreter and ``finish_plain`` for
+   every join kind, with and without a validity mask (exact), timed
+   beside the same launch without the epilogue, K5b the CSR expansion of orders into lineitem at SF1 —
    inner, left, and with the total over the capacity (exact), K5b's count
    of each join query's final row mask (exact, against ``mask.sum()``),
-   K7 the standalone join match of orders and lineitem keys (exact); each
-   timed with CUDA events beside its bound;
+   K7 the standalone join match (``[K7]``, one line a layout: orders ×
+   lineitem keys on the unique dense path, partsupp's ps_partkey ×
+   lineitem's l_partkey on the duplicate dense path, the orders keys
+   spread past a dense span on the sorted path, the unique dense layout
+   with NULL keys on both sides, and lineitem's keys with a tenth of the
+   rows under one key, which takes the sorted path), each exact against
+   its plain version on the same tensors, with its path, device ms and
+   operations, host issue ms, device-to-host reads a call, bound, plain
+   ms and the parent's route on the same tensors, and one
+   ``device_join_match`` call split into upload, kernels and copy back;
+   then a build of RANK_MAX rows a key down the rank and the sorted
+   paths (``python3 chip_smoke.py --k7`` runs these lines alone, on
+   SF1-shaped keys made with numpy); each timed with CUDA events beside its bound;
 4. the main path — every launch counter set to 0, then Q1, Q6, the
-   top-N, Q3, Q5, Q9, Q18, a join without an aggregate (K7) and a LEFT
+   top-N, Q3, Q5, Q9, Q18, two joins without an aggregate (K7: orders ⋈
+   lineitem builds on lineitem, the duplicate dense path; orders ⋈
+   customer on customer, the unique dense path) and a LEFT
    JOIN of orders and customer with an ON residual over both sides
    (``left_on``) under ``tidb_executor_engine = 'tpu'``; each query must
    launch its kernels (K1 and K2; the top-N, Q3 and Q18 also K4; the join
    queries K5a, K5b's count of the final mask and, but ``left_on``'s
-   unique probe, K5b; ``left_on`` K5a's finish; the join without an
-   aggregate K7, whose every call launches K4, K5a and K5b); the rows must
+   unique probe, K5b; ``left_on`` K5a's finish in its ON residual's K2
+   launch (its C launcher calls are logged); the joins without an aggregate
+   K7's index stage, orders ⋈ lineitem its order stage, K5a and K5b,
+   orders ⋈ customer its unique probe); the rows must
    equal the host engine's, with the same result types (every cell exact
    but in DOUBLE or FLOAT columns, which compare within rtol 1e-9 /
    atol 1e-12);
@@ -426,18 +443,26 @@ where o_orderkey in (select l_orderkey from lineitem
 group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
 order by o_totalprice desc, o_orderdate limit 100"""
 
-#: a join with no aggregate over it: the executor's HashJoin matches its
-#: keys through the standalone join match (K7)
+#: joins with no aggregate over them: the executor's HashJoin matches its
+#: keys through the standalone join match (K7), on lineitem's duplicate
+#: keys and on customer's unique ones
 JOIN_NO_AGG = """
 select o_orderkey, o_orderdate, l_extendedprice, l_discount
 from orders, lineitem
 where o_orderkey = l_orderkey and o_orderdate = '1995-03-15'
 order by o_orderkey, l_extendedprice, l_discount"""
 
+JOIN_NO_AGG_UNIQ = """
+select /*+ HASH_JOIN(orders, customer) */ o_orderkey, o_orderdate, c_name,
+       c_nationkey
+from orders, customer
+where o_custkey = c_custkey and o_orderdate = '1995-03-15'
+order by o_orderkey"""
+
 #: a LEFT JOIN whose ON clause holds a residual over both sides: the
-#: fragment probes customer's unique keys, folds the residual into the
-#: match, and K5a's finish (join_probe.finish) turns the match into the
-#: valid and no-match rows of every order
+#: fragment probes customer's unique keys, and the residual's K2 launch
+#: folds it into the match and, in its epilogue, turns the match into the
+#: valid and no-match rows of every order (K5a's finish)
 LEFT_ON = """
 select c_mktsegment, count(*) as n, count(c_custkey) as matched,
        sum(o_totalprice) as total
@@ -447,7 +472,9 @@ group by c_mktsegment order by c_mktsegment"""
 
 QUERIES = (("q1", Q1), ("q6", Q6), ("topn", TOPN), ("q3", Q3), ("q5", Q5),
            ("q9", Q9), ("q18", Q18), ("join_no_agg", JOIN_NO_AGG),
-           ("left_on", LEFT_ON))
+           ("join_no_agg_uniq", JOIN_NO_AGG_UNIQ), ("left_on", LEFT_ON))
+#: the joins whose rows K7 matches, with no fragment over them
+MATCH_QUERIES = ("join_no_agg", "join_no_agg_uniq")
 JOIN_FRAGMENTS = ("q3", "q5", "q9", "q18", "left_on")
 
 #: the host engine's text of a query, where it differs: on bulk-loaded
@@ -821,7 +848,6 @@ def phase_sql_setup(args, captured, joins):
     from tidb_tpu_torch import carry
     from tidb_tpu_torch.executor import device_exec, device_join
     from tidb_tpu_torch.ops import device as pdev
-    from tidb_tpu_torch.ops.kernels import join_probe
     from tidb_tpu_torch.session import bootstrap_domain, new_session
     t0 = time.perf_counter()
     tables = carry.gen_tpch(SF, seed=args.seed)
@@ -836,6 +862,9 @@ def phase_sql_setup(args, captured, joins):
     log(f"[sql] installed and analyzed in {time.perf_counter() - t0:.1f}s")
     keys = {"l_orderkey": tables["lineitem"][0]["l_orderkey"],
             "o_orderkey": tables["orders"][0]["o_orderkey"],
+            # [K7]'s duplicate dense layout: partsupp ⋈ lineitem on partkey
+            "ps_partkey": tables["partsupp"][0]["ps_partkey"],
+            "l_partkey": tables["lineitem"][0]["l_partkey"],
             # the [mpp] phase's K11 steps: orders ⋈ lineitem values
             "l_quantity": tables["lineitem"][0]["l_quantity"],
             "o_totalprice": tables["orders"][0]["o_totalprice"],
@@ -864,18 +893,10 @@ def phase_sql_setup(args, captured, joins):
             build=build_keys, probe=probe_keys)
         return match_fn(build_keys, probe_keys)
 
-    finish_fn = join_probe.finish
-
-    def observe_finish(pvalid, hit, kind):
-        joins.setdefault(current[0], {})[("finish", None, None, None)] = \
-            dict(pvalid=pvalid, hit=hit, kind=kind)
-        return finish_fn(pvalid, hit, kind)
-
     current = [None]
     device_exec.PIPELINE_OBSERVER[0] = observe
     device_join.FRAGMENT_OBSERVER[0] = observe_join
     pdev.device_join_match = observe_match
-    join_probe.finish = observe_finish
     try:
         for name, sql in QUERIES:
             current[0] = name
@@ -889,9 +910,8 @@ def phase_sql_setup(args, captured, joins):
         device_exec.PIPELINE_OBSERVER[0] = None
         device_join.FRAGMENT_OBSERVER[0] = None
         pdev.device_join_match = match_fn
-        join_probe.finish = finish_fn
     for name, sql in QUERIES:
-        if name == "join_no_agg":
+        if name in MATCH_QUERIES:
             if ("match",) not in joins.get(name, {}):
                 fail(f"{name}: the device join match never ran")
             continue
@@ -1432,48 +1452,309 @@ def probe_samples(ev, what):
 
 
 def join_finish(joins, report):
-    """K5a's finish on the match flags the LEFT JOIN's ON residual gave
-    (the ``left_on`` warm-up's call), against its plain version for every
-    join kind with and without a validity mask (exact), timed for the
-    main path's kind beside its bound."""
+    """K5a's finish as the epilogue of the ON residual's K2 launch (the
+    ``left_on`` warm-up's program and inputs), against the interpreter and
+    ``finish_plain`` for every join kind, with and without a validity
+    mask (exact), timed for the main path's kind beside the same launch
+    without the epilogue and beside its bound."""
     import torch
-    from tidb_tpu_torch.ops.kernels import join_probe
-    ev = joins["left_on"].get(("finish", None, None, None))
-    if ev is None:
-        fail("K5a finish: left_on's ON residual ran no finish")
-    pv, hit, kind = ev["pvalid"], ev["hit"], ev["kind"]
+    from tidb_tpu_torch.executor.device_join import _VALID
+    from tidb_tpu_torch.ops import device as pdev
+    from tidb_tpu_torch.ops.kernels import expr_vm, join_probe
+    dev = pdev.device()
+    evs = [ev for k, ev in sorted(joins["left_on"].items(),
+                                  key=lambda kv: str(kv[0]))
+           if k[0] == "vm" and ev.get("finish") is not None]
+    if not evs:
+        fail("K5a finish: left_on's ON residual ran no finish epilogue")
+    ev = evs[0]
+    prog, inputs, n = ev["prog"], ev["inputs"], ev["n"]
+    pv, kind = ev["finish"]
     for k in join_probe.KINDS:
         for v in (pv, None):
-            got = join_probe.finish(v, hit, k)
-            want = join_probe.finish_plain(v, hit, k)
+            what = f"K5a finish {k}{'' if v is pv else ' no pvalid'}"
+            got = expr_vm.run(prog, inputs, n, n, dev, finish=(v, k))
+            want = expr_vm.interpret(prog, inputs, n, n, dev,
+                                     finish=(v, k))
             torch.cuda.synchronize()
-            same_outputs(list(got), list(want),
-                         f"K5a finish {k}{'' if v is pv else ' no pvalid'}")
+            compare_vm(got[:2], want[:2], what)
+            same_outputs(list(got[2]), list(want[2]), what)
 
     def fin_k():
-        return join_probe.finish(pv, hit, kind)
+        return expr_vm.run(prog, inputs, n, n, dev, finish=(pv, kind))
+
+    def vm_k():
+        return expr_vm.run(prog, inputs, n, n, dev)
 
     def fin_p():
-        return join_probe.finish_plain(pv, hit, kind)
+        return expr_vm.interpret(prog, inputs, n, n, dev,
+                                 finish=(pv, kind))
 
-    ms, plain_ms = cuda_ms(fin_k), cuda_ms(fin_p)
-    valid, nohit, n_valid = fin_k()
-    # the flags read once, the two masks and the count written once
-    bound = (nbytes([t for t in (pv, hit) if t is not None])
-             + nbytes([valid, nohit, n_valid])) / HBM_BYTES_PER_S * 1e3
-    split = call_split(fin_k)
-    if not split[1]:
-        # the device trace kept none of the calls: not measured
-        split = (None, None, split[2])
-    log(f"[K5a] left_on finish ({kind}): n={hit.shape[0]}, "
-        f"{int(n_valid)} valid, {int(nohit.sum())} with no match: exact "
-        f"for each of {len(join_probe.KINDS)} join kinds, with and without "
-        f"validity; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-        f"{bound:.4f} ms); {split_text(split)}")
+    ms, vm_ms, plain_ms = cuda_ms(fin_k), cuda_ms(vm_k), cuda_ms(fin_p)
+    mask, outs, (valid, nohit, n_valid) = fin_k()
+    # the residual's own bound (its inputs read once, one sector a row
+    # with a match for each column read through the build's row index,
+    # the mask written once), and the finish's bytes on top: the validity
+    # read once, the valid and no-match flags and the count written once
+    hit_rows = int(inputs[prog.in_cols.index(_VALID)][0].sum())
+    vm_bound = vm_bound_ms(prog, inputs, (mask, outs), hit_rows)
+    fin_bound = (nbytes([t for t in (pv,) if t is not None])
+                 + nbytes([valid, nohit, n_valid])) / HBM_BYTES_PER_S * 1e3
+    # the host's issue time of the two in turns (with, without, without,
+    # with); device ms and operations where the device trace kept the
+    # calls (else not measured)
+    host = {fin_k: [], vm_k: []}
+    for fn in (fin_k, vm_k, vm_k, fin_k):
+        host[fn].append(host_issue_ms(fn))
+    split, vm_split = [], []
+    for fn, sp in ((fin_k, split), (vm_k, vm_split)):
+        got = device_profile(fn)
+        ops = sum(v[1] for v in got.values())
+        sp += [sum(v[0] for v in got.values()) if ops else None,
+               ops or None, statistics.mean(host[fn])]
+    log(f"[K5a] left_on finish ({kind}) in the ON residual's K2 launch: "
+        f"n={n}, {int(n_valid)} valid, {int(nohit.sum())} with no match: "
+        f"exact for each of {len(join_probe.KINDS)} join kinds, with and "
+        f"without validity; {ms:.3f} ms with the epilogue, {vm_ms:.3f} ms "
+        f"the same launch without it (plain {plain_ms:.3f} ms, bound "
+        f"{vm_bound + fin_bound:.4f} ms, of it the finish's bytes "
+        f"{fin_bound:.4f}); with {split_text(split)}; without "
+        f"{split_text(vm_split)}")
     report["join_finish"].update(dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        device_ms=split[0], device_ops_per_call=split[1],
-        host_ms=split[2]))
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        bound_ms=vm_bound + fin_bound, device_ms=split[0],
+        device_ops_per_call=split[1], host_ms=split[2], ms_vm_alone=vm_ms,
+        device_ms_vm_alone=vm_split[0], host_ms_vm_alone=vm_split[2]))
+
+
+#: ``[K7]``'s layouts, each with the path K7's summary must pick
+K7_LAYOUTS = (("unique dense", "uniq"), ("duplicate dense", "rank"),
+              ("sparse", "sorted"), ("nulls", "uniq"), ("hot key", "sorted"))
+#: the sparse layout's key spread: orders' keys times this pass any dense
+#: span
+K7_SPREAD = 1_000_003
+
+
+def k7_inputs(name, keys, rng):
+    """(bk, bn, pk, pn) numpy arrays of one ``[K7]`` layout: the build's
+    keys and NULL flags, the probe's keys and NULL flags."""
+    import numpy as np
+    ok, lk = keys["o_orderkey"], keys["l_orderkey"]
+    if name == "duplicate dense":
+        bk, pk = keys["ps_partkey"], keys["l_partkey"]
+    elif name == "sparse":
+        bk, pk = ok * K7_SPREAD, lk * K7_SPREAD
+    elif name == "hot key":
+        # lineitem's keys with a tenth of the rows under one order's key,
+        # probed by every order
+        bk = lk.copy()
+        bk[rng.random(len(lk)) < 0.1] = ok[0]
+        pk = ok
+    else:
+        bk, pk = ok, lk
+    bn, pn = np.zeros(len(bk), bool), np.zeros(len(pk), bool)
+    if name == "nulls":
+        bn, pn = rng.random(len(bk)) < 0.1, rng.random(len(pk)) < 0.1
+    return bk, bn, pk, pn
+
+
+def k7_parent_route(bk, bn, pk, pv, nv):
+    """The parent's K7 on the card, from the kernels it launched (K4's
+    valid-first order of the build, K5a's sorted count, the total's read,
+    K5b's expansion with its keep mask), without the copy back and the
+    numpy filter that followed.  Returns (pi, bi, keep)."""
+    from tidb_tpu_torch.ops.kernels import join_expand, join_probe, sort_topk
+    order = sort_topk.valid_first_order(bk, bn)
+    pr = join_probe.probe([pk], [None], pv, None, bk, None, nv,
+                          layout="sorted", mode="count", order=order)
+    total = int(pr["count"])
+    if total == 0:
+        return None
+    ex = join_expand.expand(pr["cnt"], pr["pos0"], None, order,
+                            order.shape[0], None, total)
+    return ex["pi"], ex["bi"], ex["valid"]
+
+
+def k7_rank_limit(keys, rng):
+    """``[K7] rank limit``: a build of orders' first keys, each under
+    RANK_MAX rows (the dense rank's last count) in shuffled row order,
+    probed by lineitem's keys, matched down the rank path and down the
+    sorted path (RANK_MAX lowered by one for the call) on the same
+    tensors, each exact against the plain version.  Returns the row."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import device as pdev
+    from tidb_tpu_torch.ops.kernels import join_match
+    dev = pdev.device()
+    r = join_match.RANK_MAX
+    ok = keys["o_orderkey"]
+    bk = rng.permutation(np.repeat(ok[:len(ok) // r], r))
+    bk, pk = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (bk, keys["l_orderkey"]))
+    bn = torch.zeros(bk.shape[0], dtype=torch.bool, device=dev)
+    pv = torch.ones(pk.shape[0], dtype=torch.bool, device=dev)
+    want = join_match.match_plain(bk, bn, pk, pv)
+    row = dict(build=bk.shape[0], probe=pk.shape[0], pairs=want[0].shape[0],
+               maxmult=r)
+    for path, limit in (("rank", r), ("sorted", r - 1)):
+        join_match.RANK_MAX = limit
+        try:
+            info = {}
+            got = join_match.match(bk, bn, pk, pv, info=info)
+            torch.cuda.synchronize()
+            if info["path"] != path:
+                fail(f"K7 rank limit: path {info['path']}, expected {path}")
+            same_outputs(list(got), list(want), f"K7 rank limit {path}")
+
+            def fn():
+                return join_match.match(bk, bn, pk, pv)
+
+            ms, split = cuda_ms(fn), call_split(fn)
+        finally:
+            join_match.RANK_MAX = r
+        row.update({f"{path}_ms": ms, f"{path}_device_ms": split[0],
+                    f"{path}_device_ops_per_call": split[1]})
+    log(f"[K7] rank limit: build {row['build']} ({r} rows a key, shuffled), "
+        f"probe {row['probe']}, {row['pairs']} pairs: exact down both "
+        f"paths; rank {row['rank_ms']:.3f} ms (device "
+        f"{row['rank_device_ms']:.3f} ms in "
+        f"{row['rank_device_ops_per_call']:g} operations), sorted "
+        f"{row['sorted_ms']:.3f} ms (device {row['sorted_device_ms']:.3f} ms "
+        f"in {row['sorted_device_ops_per_call']:g} operations)")
+    return row
+
+
+def k7_alone(seed):
+    """``--k7``: only ``[K7]``'s lines, on SF1-shaped keys made with
+    numpy instead of the SQL tables (orders' 1,500,000 keys by TPC-H's
+    rule, 1-7 lineitem rows an order, partsupp's 4 rows of each of
+    200,000 parts, lineitem's parts uniform), for a quick reading of K7
+    alone."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    i = np.arange(1_500_000)
+    ok = (i // 8) * 32 + i % 8 + 1
+    lk = np.repeat(ok, rng.integers(1, 8, len(ok)))
+    keys = {"o_orderkey": ok, "l_orderkey": lk,
+            "ps_partkey": np.repeat(np.arange(1, 200_001), 4),
+            "l_partkey": rng.integers(1, 200_001, len(lk))}
+    k7_layouts(argparse.Namespace(seed=seed), keys, {"join_match": {}})
+
+
+def k7_match_split(arrays):
+    """One ``device_join_match`` call's host clock split: the four
+    uploads, K7's kernels (the match, its reads included) and the copy
+    back of the pairs, each up to a synchronise.  Returns (ms of each,
+    the numpy pairs)."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import device as pdev
+    from tidb_tpu_torch.ops.kernels import join_match
+    bk, bn, pk, pn = arrays
+    d = pdev.device()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ins = (pdev.upload(np.asarray(bk, dtype=np.int64), d),
+           pdev.upload(np.asarray(bn, dtype=bool), d),
+           pdev.upload(np.asarray(pk, dtype=np.int64), d),
+           pdev.upload(~np.asarray(pn, dtype=bool), d))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pi, bi = join_match.match(*ins)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = (pi.cpu().numpy(), bi.cpu().numpy())
+    t3 = time.perf_counter()
+    return tuple((b - a) * 1e3 for a, b in ((t0, t1), (t1, t2), (t2, t3))), out
+
+
+def k7_layouts(args, keys, report):
+    """``[K7]``: the standalone join match in each layout of K7_LAYOUTS,
+    exact against its plain version on the same tensors (and its path the
+    one the layout must take), with ms, device ms and operations, host
+    issue ms, device-to-host reads a call, the bound (both sides' keys
+    and flags read once and 16 bytes a pair written once: the index's own
+    traffic is left out), plain ms, the parent's route on the same
+    tensors (:func:`k7_parent_route`) and one ``device_join_match`` call
+    split into upload, kernels and copy back; then the rank limit
+    (:func:`k7_rank_limit`)."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.ops import device as pdev
+    from tidb_tpu_torch.ops.kernels import join_match
+    dev = pdev.device()
+    rng = np.random.default_rng(args.seed)
+    layouts = {}
+    for name, path in K7_LAYOUTS:
+        arrays = k7_inputs(name, keys, rng)
+        bk, bn, pk, pn = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in arrays)
+        pv = ~pn
+        info = {}
+        got = join_match.match(bk, bn, pk, pv, info=info)
+        want = join_match.match_plain(bk, bn, pk, pv)
+        torch.cuda.synchronize()
+        if info["path"] != path:
+            fail(f"K7 {name}: path {info['path']}, expected {path}")
+        same_outputs(list(got), list(want), f"K7 {name}")
+        total = got[0].shape[0]
+        if not total:
+            fail(f"K7 {name}: no pairs")
+
+        def k_call(bk=bk, bn=bn, pk=pk, pv=pv):
+            return join_match.match(bk, bn, pk, pv)
+
+        def p_call(bk=bk, bn=bn, pk=pk, pv=pv):
+            return join_match.match_plain(bk, bn, pk, pv)
+
+        def parent_call(bk=bk, bn=bn, pk=pk, pv=pv, nv=info["nvalid"]):
+            return k7_parent_route(bk, bn, pk, pv, nv)
+
+        ppi, pbi, keep = parent_call()
+        same_outputs([ppi[keep].long(), pbi[keep].long()],
+                     [t.long() for t in got], f"K7 {name} parent's route")
+        ms, plain_ms = cuda_ms(k_call), cuda_ms(p_call)
+        parent_ms = cuda_ms(parent_call)
+        runtime = {}
+        split = call_split(k_call, runtime=runtime)
+        parent_split = call_split(parent_call)
+        reads = sum(c for k, c in runtime.items()
+                    if k.startswith(RUNTIME_COPY))
+        nb_, np_ = bk.shape[0], pk.shape[0]
+        bound = ((nbytes([bk, bn, pk, pv]) + 16 * total)
+                 / HBM_BYTES_PER_S * 1e3)
+        parts, pairs = k7_match_split(arrays)
+        ref = pdev.device_join_match((arrays[0], arrays[1]),
+                                     (arrays[2], arrays[3]))
+        for a, b, c in zip(pairs, ref, got):
+            if not (np.array_equal(a, b) and np.array_equal(a, c.cpu())):
+                fail(f"K7 {name}: device_join_match's pairs differ")
+        row = dict(path=info["path"], build=nb_, probe=np_, pairs=total,
+                   maxmult=info["maxmult"], ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound, device_ms=split[0],
+                   device_ops_per_call=split[1], host_ms=split[2],
+                   reads_per_call=reads, parent_ms=parent_ms,
+                   parent_device_ms=parent_split[0],
+                   parent_device_ops_per_call=parent_split[1],
+                   upload_ms=parts[0], kernels_ms=parts[1],
+                   copy_back_ms=parts[2])
+        layouts[name] = row
+        log(f"[K7] {name}: build {nb_} ({int(bn.sum())} NULL), probe "
+            f"{np_} ({int(pn.sum())} NULL), {total} pairs, path "
+            f"{info['path']} (largest count under one key "
+            f"{info['maxmult']}, capped at RANK_MAX + 1): exact; {ms:.3f} ms on the card (plain "
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms); {split_text(split)}"
+            f"; {reads:g} device-to-host reads a call; the parent's route "
+            f"{parent_ms:.3f} ms ({split_text(parent_split)}); "
+            f"device_join_match upload {parts[0]:.3f} ms, kernels "
+            f"{parts[1]:.3f} ms, copy back {parts[2]:.3f} ms")
+    layouts["rank limit"] = k7_rank_limit(keys, rng)
+    main = layouts["unique dense"]
+    report["join_match"].update(dict(
+        max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], device_ms=main["device_ms"],
+        device_ops_per_call=main["device_ops_per_call"],
+        host_ms=main["host_ms"], layouts=layouts))
 
 
 def phase_join_kernels(args, joins, keys, report):
@@ -1481,8 +1762,7 @@ def phase_join_kernels(args, joins, keys, report):
     import torch
     from tidb_tpu_torch.executor.join_index import build_join_index
     from tidb_tpu_torch.ops import device as pdev
-    from tidb_tpu_torch.ops.kernels import (expr_vm, join_expand,
-                                            join_probe, sort_topk)
+    from tidb_tpu_torch.ops.kernels import expr_vm, join_expand, join_probe
     from tidb_tpu_torch.sqltypes import TYPE_LONGLONG, FieldType
     from tidb_tpu_torch.utils.chunk import Column
     dev = pdev.device()
@@ -1670,86 +1950,41 @@ def phase_join_kernels(args, joins, keys, report):
     del cnt_row["n"]
     report["join_expand_count"].update(cnt_row)
 
-    # -- K7: the standalone join match of orders and lineitem keys ------------
-    bk, pk = up(ok), up(lk)
-    bn = up(np.zeros(no, bool))
-    pvk = up(np.ones(len(lk), bool))
-
-    def k7_k():
-        order, pos0, cnt, total = pdev._join_count_impl(bk, pk, bn, pvk, no)
-        return (order, pos0, cnt) + tuple(pdev._join_expand_impl(
-            order, pos0, cnt, int(total)))
-
-    def k7_p():
-        order = sort_topk.sort_plain([bk], [bn], [False], [False], no, no)
-        pr = join_probe.probe_plain([pk], [None], pvk, None, bk, None, no,
-                                    "sorted", "count", order=order)
-        out = join_expand.expand_plain(pr["cnt"], pr["pos0"], None, order,
-                                       no, None, int(pr["count"]))
-        return (order, pr["pos0"], pr["cnt"], out["pi"], out["bi"],
-                out["valid"])
-
-    out_k, out_p = k7_k(), k7_p()
-    torch.cuda.synchronize()
-    same_outputs(list(out_k), list(out_p), "K7 orders x lineitem")
-    total = int(out_k[3].shape[0])
-    got = pdev.device_join_match((ok, np.zeros(no, bool)),
-                                 (lk, np.zeros(len(lk), bool)))
-    if len(got[0]) != total or total != len(lk):
-        fail(f"K7: {len(got[0])} pairs, expected {len(lk)}")
-    ms, plain_ms = cuda_ms(k7_k), cuda_ms(k7_p)
-    split = call_split(k7_k)
-    # the bytes the match must move: both sides' keys and flags read once,
-    # the build order and the pairs written once, and one sector per probe
-    # row for its key's lookup (the counts and starts between the passes
-    # are this design's own, not the function's)
-    order, _pos0, _cnt, pi, bi, keep = out_k
-    moved = nbytes([bk, bn, pk, pvk]) + nbytes([order, pi, bi, keep])
-    bound = (moved + len(lk) * SECTOR) / HBM_BYTES_PER_S * 1e3
-    log(f"[K7] orders ({no}) x lineitem ({len(lk)}) keys: {total} pairs, "
-        f"exact (order, counts and pairs); {ms:.3f} ms on the card (plain "
-        f"{plain_ms:.3f} ms, bound {bound:.4f} ms); {split_text(split)}")
-    report["join_match"].update(dict(max_abs_err=0.0, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bound,
-                                     device_ms=split[0],
-                                     device_ops_per_call=split[1],
-                                     host_ms=split[2]))
+    k7_layouts(args, keys, report)
 
 
 def phase_main_path(dom, s, n_rows, report):
     import torch
     from tidb_tpu_torch.ops import device as pdev
-    from tidb_tpu_torch.ops.kernels import (expr_vm, groupby_agg,
-                                            join_expand, join_probe,
-                                            sort_topk)
-    # K5b's count, K5a's finish and K7 are entries over the kernels' own
-    # counters: a call of one counts once where the counters of the
-    # kernels it runs moved (K5b's or K5a's by one; K7's K4, K5a and K5b
-    # each)
-    composite = {"join_expand_count": [0], "join_match": [0],
-                 "join_finish": [0]}
+    from tidb_tpu_torch.ops.kernels import (build, expr_vm, groupby_agg,
+                                            join_expand, join_match,
+                                            join_probe, sort_topk)
+    # K5b's count and K7 are entries over the kernels' own counters: a
+    # call of one counts once where the counters of the kernels it runs
+    # moved (K5b's by one; K7's launcher); K5a's finish counts the K2
+    # launches that carried its epilogue, and K7's stages their launches
+    composite = {"join_expand_count": [0], "join_match": [0]}
+    stages = {f"join_match_{k}": c
+              for k, c in join_match.STAGE_LAUNCHES.items()}
     counters = {"expr_vm": expr_vm.LAUNCHES, "groupby_agg":
                 groupby_agg.LAUNCHES, "sort_topk": sort_topk.LAUNCHES,
                 "join_probe": join_probe.LAUNCHES,
-                "join_expand": join_expand.LAUNCHES, **composite}
+                "join_expand": join_expand.LAUNCHES,
+                "join_finish": expr_vm.FINISH_LAUNCHES, **composite,
+                **stages}
     agg = ["expr_vm", "groupby_agg"]
     frag = agg + ["join_probe", "join_expand", "join_expand_count"]
     need = {"q1": agg, "q6": agg, "topn": agg + ["sort_topk"],
             "q3": frag + ["sort_topk"], "q5": frag, "q9": frag,
             "q18": frag + ["sort_topk"],
-            "join_no_agg": ["join_match", "sort_topk", "join_probe",
+            "join_no_agg": ["join_match", "join_match_index",
+                            "join_match_order", "join_probe",
                             "join_expand"],
+            "join_no_agg_uniq": ["join_match", "join_match_index",
+                                 "join_match_uniq"],
             "left_on": agg + ["join_probe", "join_expand_count",
                               "join_finish"]}
     count_fn, match_fn = join_expand.count, pdev.device_join_match
-    finish_fn = join_probe.finish
-
-    def counted_finish(pvalid, hit, kind):
-        before = join_probe.LAUNCHES[0]
-        out = finish_fn(pvalid, hit, kind)
-        if join_probe.LAUNCHES[0] == before + 1:
-            composite["join_finish"][0] += 1
-        return out
 
     def counted_count(mask):
         before = join_expand.LAUNCHES[0]
@@ -1759,11 +1994,9 @@ def phase_main_path(dom, s, n_rows, report):
         return out
 
     def counted_match(build_keys, probe_keys):
-        runs = (sort_topk.LAUNCHES, join_probe.LAUNCHES,
-                join_expand.LAUNCHES)
-        before = [c[0] for c in runs]
+        before = join_match.LAUNCHES[0]
         out = match_fn(build_keys, probe_keys)
-        if all(c[0] > b for c, b in zip(runs, before)):
+        if join_match.LAUNCHES[0] > before:
             composite["join_match"][0] += 1
         return out
 
@@ -1785,27 +2018,36 @@ def phase_main_path(dom, s, n_rows, report):
     loadg = 0
     device_join.build_join_index = timed_build
     join_expand.count, pdev.device_join_match = counted_count, counted_match
-    join_probe.finish = counted_finish
     try:
         for name, sql in QUERIES:
+            card0 = collections.Counter(
+                {f: c for (f, _card), c in build.CARD_LAUNCHES.items()})
             dev_res[name] = run_counted(s, name, sql, counters, need,
                                         n_rows, index_builds)
             dev_ms[name] = dev_res[name][2]
             if name in JOIN_FRAGMENTS:
                 loadg += dev_res[name][1]["expr_vm"]
+            if name in ("left_on",) + MATCH_QUERIES:
+                card1 = collections.Counter(
+                    {f: c for (f, _card), c in build.CARD_LAUNCHES.items()})
+                card1.subtract(card0)
+                log(f"[main] {name}: C launcher calls "
+                    f"{dict(sorted((f, c) for f, c in card1.items() if c))}")
     finally:
         device_join.build_join_index = build_index
         join_expand.count, pdev.device_join_match = count_fn, match_fn
-        join_probe.finish = finish_fn
     dev_res = {k: v[0] for k, v in dev_res.items()}
     log("[main] launch counts above; the timing below is not counted")
     for k, c in counters.items():
-        report[k]["launches"] = c[0]
+        if k in report:
+            report[k]["launches"] = c[0]
+    report["join_match"].update(
+        {f"launches_{k}": c[0] for k, c in join_match.STAGE_LAUNCHES.items()})
     report["expr_vm_loadg"]["launches"] = loadg
     # the same query twice in a row: its join indexes stay cached on the
     # build tables' columns (one index per column, as in the reference),
     # where the mixed sequence above rebuilds them when the filters change
-    for name in JOIN_FRAGMENTS:
+    for name in JOIN_FRAGMENTS + MATCH_QUERIES:
         sql = dict(QUERIES)[name]
         s.execute(sql)
         torch.cuda.synchronize()
@@ -2010,10 +2252,10 @@ def first_launch_calls(seed, dev):
     import torch
     from tidb_tpu_torch.executor.join_index import build_join_index
     from tidb_tpu_torch.ops.kernels import (expr_vm, groupby_agg,
-                                            join_expand, join_probe,
-                                            merge_states, radix_exchange,
-                                            shuffle_join, sort_topk,
-                                            window_scan)
+                                            join_expand, join_match,
+                                            join_probe, merge_states,
+                                            radix_exchange, shuffle_join,
+                                            sort_topk, window_scan)
     from tidb_tpu_torch.sqltypes import TYPE_LONGLONG, FieldType
     from tidb_tpu_torch.utils.chunk import Column
     rng = np.random.default_rng(seed)
@@ -2072,6 +2314,8 @@ def first_launch_calls(seed, dev):
             dense_span=idx.span),
         "K5b join_expand": lambda: join_expand.expand(
             cnt, pos0, mask, perm, nb, None, 1 << 14),
+        "K7 join_match": lambda: join_match.match(
+            up(bkeys), up(np.zeros(nb, bool)), pk, mask),
         "K8/K9 merge_states": lambda: merge_states.merge(
             states[-2:], 1, ops, 1 << 9, pack),
         "K10 window_scan": lambda: window_scan.run(
@@ -2937,9 +3181,9 @@ ONE_CARD_QUERIES = ("q1", "q3", "shuffle")
 CARD_FNS = {"expr_vm": ("expr_vm_run",),
             "groupby_agg": ("gb_groups_run",),
             "sort_topk": ("sort_keys_run",),
-            "join_probe": ("join_range_run", "join_probe_run",
-                           "join_finish_run"),
+            "join_probe": ("join_range_run", "join_probe_run"),
             "join_expand": ("join_expand_run",),
+            "join_match": ("join_match_run",),
             "merge_states": ("ms_fold_run",),
             "window_scan": ("window_scan_run",),
             "radix_exchange": ("radix_hash_run", "radix_partition_run"),
@@ -6367,6 +6611,9 @@ def main(argv=None) -> int:
     ap.add_argument("--exchange-split", action="store_true",
                     help="only the [exchange-split] calls of kernels A "
                          "and B (phase 1d), in this process")
+    ap.add_argument("--k7", action="store_true",
+                    help="only the [K7] lines, on SF1-shaped keys made "
+                         "with numpy, in this process")
     ap.add_argument("--first-launch", action="store_true",
                     help="only the [first-launch] calls (phase 1e), in "
                          "this process")
@@ -6407,10 +6654,12 @@ def main(argv=None) -> int:
         sys.stderr.flush()
         os._exit(rc)
     if (args.fold_split or args.exchange_split or args.first_launch
-            or args.mpp_cards or args.faults):
+            or args.mpp_cards or args.faults or args.k7):
         try:
             if args.fold_split:
                 fold_split(args.seed)
+            elif args.k7:
+                k7_alone(args.seed)
             elif args.exchange_split:
                 exchange_split(args.seed)
             elif args.mpp_cards:
@@ -6461,17 +6710,21 @@ def main(argv=None) -> int:
                               "replaces": "tidb_tpu/executor/"
                                           "device_join.py:892",
                               "bound_by": "bytes", "library_ms": None},
-        "join_finish": {"name": "K5a join_probe finish (a LEFT JOIN's "
-                                "match after its ON residual)",
+        "join_finish": {"name": "K5a finish (a LEFT JOIN's match after its "
+                                "ON residual), the epilogue of the "
+                                "residual's K2 launch",
                         "route": "cuda",
                         "source": "tidb_tpu_torch/ops/kernels/csrc/"
-                                  "join_probe.cu",
+                                  "expr_vm.cu",
                         "replaces": "tidb_tpu/executor/device_join.py:779",
                         "bound_by": "bytes", "library_ms": None},
-        "join_match": {"name": "K7 device_join_match (K4 + K5a + K5b)",
+        # no one PyTorch call computes an equi-join's pairs
+        "join_match": {"name": "K7 join_match (a device index; one probe "
+                               "launch on a unique dense build, else K5a's "
+                               "count and K5b)",
                        "route": "cuda",
                        "source": "tidb_tpu_torch/ops/kernels/csrc/"
-                                 "join_probe.cu",
+                                 "join_match.cu",
                        "replaces": "tidb_tpu/ops/device.py:1506",
                        "bound_by": "bytes", "library_ms": None},
         # no one PyTorch call computes a group-by, so none a fold of them
@@ -6645,7 +6898,13 @@ def main(argv=None) -> int:
              # the visible cards, and [mpp-cards]'s launches by card
              "cards", "launches_by_card",
              # [faults]' launches in this process (its OOM and KILL cases)
-             "launches_faults")
+             "launches_faults",
+             # K5a's finish: the ON residual's K2 launch without the
+             # epilogue; K7: its stages' main-path launches and [K7]'s
+             # line a layout
+             "ms_vm_alone", "device_ms_vm_alone", "host_ms_vm_alone",
+             "launches_index", "launches_uniq", "launches_order",
+             "layouts")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report.values()]}))

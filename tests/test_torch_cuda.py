@@ -228,9 +228,127 @@ def test_join_probe_matches_plain(dev, layout, mode, kind):
     _same(got, want, f"{layout}/{mode}/{kind}")
     if mode != "count":
         flag = got.get("hit", got["valid"])
-        _same(list(join_probe.finish(pvalid, flag, kind)),
+        _same(list(_vm_finish(flag, pvalid, kind)),
               list(join_probe.finish_plain(pvalid, flag.cpu().to(dev),
                                            kind)), "finish")
+
+
+def _vm_finish(flag, pvalid, kind):
+    """K5a's finish of a match flag as the expression VM's epilogue
+    gives it: a program whose mask is the flag itself."""
+    n = flag.shape[0]
+    prog = expr_vm.Program.build([expr_vm.load(0, "i")], [], [])
+    none = torch.zeros(n, dtype=torch.bool, device=flag.device)
+    return expr_vm.run(prog, [(flag, none)], n, n, flag.device,
+                       finish=(pvalid, kind))[2]
+
+
+@pytest.mark.parametrize("with_pvalid", [True, False],
+                         ids=["pvalid", "no-pvalid"])
+@pytest.mark.parametrize("kind", ["inner", "left", "semi", "anti"])
+def test_vm_finish_matches_plain(dev, kind, with_pvalid):
+    """An ON residual's program with the finish epilogue: one launch,
+    its mask and the kind's valid rows, no-match map and count equal to
+    the interpreter's and finish_plain's; no rows give a count of 0."""
+    from tidb_tpu_torch.ops.kernels import join_probe
+    rng = np.random.default_rng(9)
+    n = (1 << 21) + 7
+    hit0 = _up(rng.random(n) < 0.7, dev)
+    price = _up(rng.integers(0, 10 ** 6, n), dev)
+    nation = _up(rng.integers(0, 25, n), dev)
+    nnul = _up(rng.random(n) < 0.1, dev)
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    pvalid = _up(rng.random(n) < 0.9, dev) if with_pvalid else None
+    p, c = expr_vm.load(1, "i"), expr_vm.load(2, "i")
+    prog = expr_vm.Program.build([expr_vm.load(0, "i"), expr_vm.cmp(
+        "gt", p, expr_vm.arith("mul", c, expr_vm.const(10000, "i")))],
+        [], [])
+    ins = [(hit0, none), (price, none), (nation, nnul)]
+    before = (expr_vm.LAUNCHES[0], expr_vm.FINISH_LAUNCHES[0])
+    hit, _o, fin = expr_vm.run(prog, ins, n, n, dev, finish=(pvalid, kind))
+    torch.cuda.synchronize()
+    assert (expr_vm.LAUNCHES[0], expr_vm.FINISH_LAUNCHES[0]) == (
+        before[0] + 1, before[1] + 1)
+    mask, _op = expr_vm.interpret(prog, ins, n, n, dev)
+    assert torch.equal(hit, mask)
+    _same(list(fin), list(join_probe.finish_plain(pvalid, mask, kind)),
+          f"finish {kind}")
+    for _ in range(3):  # the count's status words are left at 0
+        again = expr_vm.run(prog, ins, n, n, dev, finish=(pvalid, kind))[2]
+        assert int(again[2]) == int(fin[2])
+    empty = torch.zeros(0, dtype=torch.bool, device=dev)
+    got = expr_vm.run(prog, [(empty, empty)] * 3, 0, 0, dev,
+                      finish=(None, kind))[2]
+    assert int(got[2]) == 0 and got[0].shape == (0,)
+
+
+def _k7_inputs(case, rng):
+    """Seeded (bk, bn, pk, pv) of one K7 layout at a size where each
+    stage fills the card, and the path its summary must pick."""
+    nb, n = 1 << 20, 3 << 20
+    none_b = np.zeros(nb, bool)
+    all_p = np.ones(n, bool)
+    if case == "unique-dense":
+        bk = rng.permutation(nb) * 4 + 1
+        return bk, none_b, rng.integers(0, 4 * nb + 8, n), all_p, "uniq"
+    if case == "unique-top":
+        bk = np.iinfo(np.int64).max - rng.permutation(nb)
+        pk = np.iinfo(np.int64).max - rng.integers(0, nb + 99, n)
+        pk[:5] = np.iinfo(np.int64).min
+        return bk, none_b, pk, all_p, "uniq"
+    if case == "dup-dense":
+        return (rng.integers(0, nb // 4, nb), none_b,
+                rng.integers(-2, nb // 4 + 2, n), all_p, "rank")
+    if case == "sparse":
+        bk = rng.integers(-(1 << 60), 1 << 60, nb)
+        pk = rng.choice(bk, n)
+        pk[::3] = rng.integers(-(1 << 60), 1 << 60, len(pk[::3]))
+        return bk, none_b, pk, all_p, "sorted"
+    if case == "nulls":
+        return (rng.integers(0, nb // 2, nb), rng.random(nb) < 0.2,
+                rng.integers(0, nb // 2, n), rng.random(n) < 0.8, "rank")
+    if case == "dup-runs":
+        # lineitem's shape: each key's 1-7 rows adjacent, so a warp's
+        # rows share keys
+        bk = np.repeat(np.arange(nb), rng.integers(1, 8, nb))[:nb]
+        return bk, none_b, rng.integers(-2, nb // 4, n), all_p, "rank"
+    if case == "hot-run":
+        bk = np.sort(rng.integers(0, nb, nb))
+        bk[1000:70000] = 77
+        return bk, none_b, rng.integers(0, 4096, n), all_p, "sorted"
+    assert case == "hot-key"
+    bk = rng.integers(0, nb, nb)
+    bk[rng.random(nb) < 0.05] = 77
+    return bk, none_b, rng.integers(0, 4096, n), all_p, "sorted"
+
+
+@pytest.mark.parametrize("case", ["unique-dense", "unique-top", "dup-dense",
+                                  "sparse", "nulls", "hot-key", "dup-runs",
+                                  "hot-run"])
+def test_join_match_matches_plain(dev, case):
+    """K7 on the card against its plain version on the CPU: the same
+    path, the same pairs in the same order; the index stage launches
+    every time, the uniq or order stage where the path runs it."""
+    from tidb_tpu_torch.ops.kernels import join_match
+    rng = np.random.default_rng(10)
+    bk, bn, pk, pv, path = _k7_inputs(case, rng)
+    ins = [np.asarray(bk, np.int64), bn, np.asarray(pk, np.int64), pv]
+    before = {k: c[0] for k, c in join_match.STAGE_LAUNCHES.items()}
+    info = {}
+    got = join_match.match(*[_up(a, dev) for a in ins], info=info)
+    torch.cuda.synchronize()
+    moved = {k: c[0] - before[k]
+             for k, c in join_match.STAGE_LAUNCHES.items()}
+    plain_info = {}
+    want = join_match.match(*[torch.from_numpy(a) for a in ins],
+                            info=plain_info)
+    assert info["path"] == plain_info["path"] == path
+    for k in ("min", "max", "nvalid", "maxmult"):
+        assert info[k] == plain_info[k], k
+    assert moved == {"index": 1, "uniq": int(path == "uniq"),
+                     "order": int(path == "rank")}
+    assert got[0].shape[0] > 0
+    _same(list(got), list(want), f"K7 {case}")
 
 
 def test_key_range_matches_plain(dev):
@@ -1912,6 +2030,11 @@ ON_LAST_CARD = {
                          {"layout": "dense", "mode": "uniq",
                           "kind": "left"}),
     "key_range": (test_key_range_matches_plain, {}),
+    "vm_finish": (test_vm_finish_matches_plain,
+                  {"kind": "left", "with_pvalid": True}),
+    "join_match_uniq": (test_join_match_matches_plain,
+                        {"case": "unique-dense"}),
+    "join_match_rank": (test_join_match_matches_plain, {"case": "nulls"}),
     "join_expand": (test_join_expand_matches_plain, {"case": "inner"}),
     "merge_states": (test_merge_states_matches_plain,
                      {"pack": None, "merge_cap": 1 << 9}),
@@ -1933,7 +2056,7 @@ def test_kernel_on_the_last_card_matches_plain(last_card, case):
 
 
 def test_wrappers_refuse_tensors_on_two_cards(last_card):
-    from tidb_tpu_torch.ops.kernels import (join_expand, join_probe,
+    from tidb_tpu_torch.ops.kernels import (join_expand, join_match,
                                             radix_exchange, shuffle_join)
     a = torch.arange(8, device="cuda:0")
     b = torch.arange(8, device=last_card)
@@ -1944,8 +2067,12 @@ def test_wrappers_refuse_tensors_on_two_cards(last_card):
     with pytest.raises(ValueError):
         sort_topk.sort_indices([a, b], [m, m], [False] * 2, [False] * 2,
                                8, 8, 8)
+    prog = expr_vm.Program.build([expr_vm.load(0, "i")], [], [])
     with pytest.raises(ValueError):
-        join_probe.finish(m.to("cuda:0"), m, "inner")
+        expr_vm.run(prog, [(m, m)], 8, 8, last_card,
+                    finish=(m.to("cuda:0"), "inner"))
+    with pytest.raises(ValueError):
+        join_match.match(a, m.to("cuda:0"), b, m)
     with pytest.raises(ValueError):
         join_expand.compact(m, 8, maps=[a])
     h, ok = radix_exchange.dest_hash([b], "single")

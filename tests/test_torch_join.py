@@ -9,7 +9,13 @@ chip_smoke.py hold the CUDA kernels to those plain versions on a card):
   ``_combined_join_keys``;
 * K5b ``join_expand`` (with K4's whole order and K5a's count) against
   ``_join_expand`` and the CSR block of ``compile_fragment.run``;
-* K7 ``device_join_match`` against ``tidb_tpu/ops/device.py``'s;
+* K7 ``device_join_match`` against ``tidb_tpu/ops/device.py``'s, and
+  the plain K7 (``join_match``) in each layout and path its summary
+  picks (unique dense, duplicates, sparse, int64's ends, NULLs, empty
+  sides, a hot key, a key of RANK_MAX rows and one of a row more)
+  against it, order included;
+* K5a's finish fused into the ON residual's VM launch against ``run_vm``
+  plus ``finish_plain`` and the reference's ON-residual match;
 * K6 ``build_join_index`` against the reference's arrays;
 * K2's ``LOADG`` against an explicit gather.
 
@@ -57,6 +63,7 @@ from torch_dual import isolated  # noqa: F401
 pytestmark = pytest.mark.usefixtures("isolated")
 
 I64_MAX = np.iinfo(np.int64).max
+I64_MIN = np.iinfo(np.int64).min
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -498,6 +505,180 @@ def test_device_join_match_matches_reference(nulls):
     got = tdev.device_join_match((bk, bn), (pk, pn))
     assert np.array_equal(got[0], np.asarray(want[0]))
     assert np.array_equal(got[1], np.asarray(want[1]))
+
+
+def _k7_case(name):
+    """Seeded (bk, bn, pk, pn) of one K7 layout case and the path the
+    summary must send it down."""
+    rng = np.random.default_rng(40)
+    nb, np_ = 3000, 7000
+    none_b, none_p = np.zeros(nb, bool), np.zeros(np_, bool)
+    if name == "unique-dense":
+        return (rng.permutation(nb) * 3 + 11, none_b,
+                rng.integers(0, 3 * nb + 20, np_), none_p, "uniq")
+    if name == "dup-dense":
+        # rows of a key spread over the whole build, so any order but the
+        # rows' own shows
+        return (rng.integers(0, 700, nb), none_b,
+                rng.integers(-3, 705, np_), none_p, "rank")
+    if name == "sparse":
+        bk = rng.integers(-(1 << 50), 1 << 50, nb)
+        bk[::5] = bk[1::5]  # some keys twice
+        pk = np.concatenate([rng.choice(bk, np_ - 500),
+                             rng.integers(-(1 << 50), 1 << 50, 500)])
+        return bk, none_b, pk, none_p, "sorted"
+    if name == "extremes":
+        ends = np.array([I64_MIN, I64_MAX, I64_MIN + 1, I64_MAX - 1, 0])
+        bk = rng.choice(ends, nb)
+        pk = np.concatenate([rng.choice(ends, np_ - 2), [-1, 1]])
+        return bk, none_b, pk, none_p, "sorted"
+    if name == "extremes-dense":
+        # a span at the top of the int64 range: max - min + 1 stays exact
+        bk = I64_MAX - rng.permutation(nb)
+        pk = np.concatenate([I64_MAX - rng.integers(0, nb + 9, np_ - 3),
+                             [I64_MIN, I64_MIN + 1, -1]])
+        return bk, none_b, pk, none_p, "uniq"
+    if name == "nulls":
+        return (rng.integers(0, 500, nb), rng.random(nb) < 0.2,
+                rng.integers(0, 500, np_), rng.random(np_) < 0.2, "rank")
+    if name == "all-null-build":
+        return (rng.integers(0, 500, nb), np.ones(nb, bool),
+                rng.integers(0, 500, np_), none_p, "empty")
+    if name == "all-null-probe":
+        return (rng.integers(0, 500, nb), none_b,
+                rng.integers(0, 500, np_), np.ones(np_, bool), "rank")
+    if name == "empty-build":
+        return (np.zeros(0, np.int64), np.zeros(0, bool),
+                rng.integers(0, 500, np_), none_p, None)
+    if name == "empty-probe":
+        return (rng.integers(0, 500, nb), none_b, np.zeros(0, np.int64),
+                np.zeros(0, bool), None)
+    if name in ("rank-limit", "past-rank-limit"):
+        # every key under RANK_MAX rows (the dense rank's last count), or
+        # one key under one row more (the sorted layout), rows shuffled
+        from tidb_tpu_torch.ops.kernels.join_match import RANK_MAX
+        bk = np.repeat(np.arange(-(-nb // RANK_MAX)), RANK_MAX)[:nb]
+        if name == "past-rank-limit":
+            bk[-1] = bk[0]
+        return (rng.permutation(bk), none_b,
+                rng.integers(-2, nb // RANK_MAX + 2, np_), none_p,
+                "rank" if name == "rank-limit" else "sorted")
+    assert name == "hot-key"
+    bk = rng.integers(0, 900, nb)
+    bk[rng.random(nb) < 0.3] = 321  # ~900 rows under one key
+    return bk, none_b, rng.integers(0, 900, np_), none_p, "sorted"
+
+
+K7_CASES = ("unique-dense", "dup-dense", "sparse", "extremes",
+            "extremes-dense", "nulls", "all-null-build", "all-null-probe",
+            "empty-build", "empty-probe", "hot-key", "rank-limit",
+            "past-rank-limit")
+
+
+@pytest.mark.parametrize("name", K7_CASES)
+def test_join_match_layouts_match_reference(name):
+    """The plain K7, in each layout and path its summary picks, against
+    the reference's ``device_join_match``: the same pairs in the same
+    order (probe-major, each probe row's build rows in row order)."""
+    from tidb_tpu_torch.ops.kernels import join_match
+    bk, bn, pk, pn, path = _k7_case(name)
+    bk, pk = np.asarray(bk, np.int64), np.asarray(pk, np.int64)
+    want = rdev.device_join_match((bk, bn), (pk, pn)) if len(bk) and len(
+        pk) else (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    got = tdev.device_join_match((bk, bn), (pk, pn))
+    assert np.array_equal(got[0], np.asarray(want[0]))
+    assert np.array_equal(got[1], np.asarray(want[1]))
+    info = {}
+    pi, bi = join_match.match(_t(bk), _t(bn), _t(pk), _t(~pn), info)
+    assert np.array_equal(_np(pi), got[0]) and np.array_equal(_np(bi),
+                                                              got[1])
+    if path is not None:
+        assert info["path"] == path
+    if name == "all-null-probe":
+        assert len(got[0]) == 0
+    elif path not in ("empty", None):
+        assert len(got[0]) > 0
+    if path in ("rank", "sorted") and len(got[0]):
+        # every probe row's build rows ascend: row order within a key
+        same = got[0][1:] == got[0][:-1]
+        assert same.any()
+        assert np.all(got[1][1:][same] > got[1][:-1][same])
+
+
+def test_join_match_plain_summary():
+    """The plain summary's fields, as the card's index stage leaves them:
+    min, max and count of the valid build keys, the largest count under
+    one key on a dense layout (capped at RANK_MAX + 1), and K6's dense
+    rule on the span."""
+    from tidb_tpu_torch.ops.kernels import join_match
+    bk = _t(np.array([5, 9, 5, I64_MAX, 7, 5]))
+    bn = _t(np.array([False, False, False, True, False, False]))
+    s = join_match.summary_plain(bk, bn, join_match.dense_limit(6))
+    assert s == dict(min=5, max=9, nvalid=5, maxmult=3, dense=1)
+    wide = join_match.summary_plain(_t(np.array([0, 1 << 20])),
+                                    _t(np.zeros(2, bool)),
+                                    join_match.dense_limit(2))
+    assert wide["dense"] == 0 and wide["maxmult"] == 0
+    hot = np.full(join_match.RANK_MAX + 9, 4)
+    capped = join_match.summary_plain(_t(hot), _t(np.zeros(len(hot), bool)),
+                                      join_match.dense_limit(len(hot)))
+    assert capped["maxmult"] == join_match.RANK_MAX + 1
+    assert join_match.dense_limit(2) == pji._DENSE_FLOOR
+    assert join_match.dense_limit(10 ** 6) == pji._DENSE_SLACK * 10 ** 6
+
+
+# -- K5a's finish, fused into the ON residual's VM launch ---------------------
+
+def _ref_on_residual(pvalid, hit, kind):
+    """The reference's ON-residual match after the residuals refined
+    ``hit`` (``tidb_tpu/executor/device_join.py:791-807``): the kind's
+    valid rows, the left join's null extension (no match) and the count
+    it hands the capacity check."""
+    pv, h = jnp.asarray(pvalid), jnp.asarray(hit)
+    if kind == "semi":
+        valid = pv & h
+    elif kind == "anti":
+        valid = pv & ~h
+    else:
+        valid = pv if kind == "left" else (pv & h)
+    return np.asarray(valid), np.asarray(~h), int(jnp.sum(valid))
+
+
+@pytest.mark.parametrize("with_pvalid", [True, False],
+                         ids=["pvalid", "no-pvalid"])
+@pytest.mark.parametrize("kind", ["inner", "left", "semi", "anti"])
+def test_vm_finish_matches_run_vm_and_reference(kind, with_pvalid):
+    """The VM run with the finish epilogue (an ON residual's program
+    refining a probe's match) against ``run_vm`` plus ``finish_plain``,
+    and against the reference's ON-residual match."""
+    rng = np.random.default_rng(41)
+    n = 5000
+    price = rng.integers(0, 10 ** 6, n)
+    nation = rng.integers(0, 25, n)
+    nnul = rng.random(n) < 0.1
+    hit0 = rng.random(n) < 0.7
+    pvalid = rng.random(n) < 0.9
+    p, c = expr_vm.load(1, "i"), expr_vm.load(2, "i")
+    resid = expr_vm.cmp("gt", p, expr_vm.arith(
+        "mul", c, expr_vm.const(10000, "i")))
+    prog = expr_vm.Program.build([expr_vm.load(0, "i"), resid], [], [])
+    ins = [(_t(hit0), _t(np.zeros(n, bool))),
+           (_t(price), _t(np.zeros(n, bool))), (_t(nation), _t(nnul))]
+    pv = _t(pvalid) if with_pvalid else None
+    cpu = torch.device("cpu")
+    hit, _o, fin = expr_vm.run(prog, ins, n, n, cpu, finish=(pv, kind))
+    mask, _o2 = expr_vm.run(prog, ins, n, n, cpu)
+    want = join_probe.finish_plain(pv, mask, kind)
+    assert torch.equal(hit, mask)
+    for a, b in zip(fin, want):
+        assert torch.equal(a, b)
+    ref_hit = hit0 & (price > nation * 10000) & ~nnul
+    assert np.array_equal(_np(hit), ref_hit)
+    rv, rn, rc = _ref_on_residual(pvalid if with_pvalid else
+                                  np.ones(n, bool), ref_hit, kind)
+    assert np.array_equal(_np(fin[0]), rv)
+    assert np.array_equal(_np(fin[1]), rn)
+    assert int(fin[2]) == rc
 
 
 # -- K2: LOADG ----------------------------------------------------------------

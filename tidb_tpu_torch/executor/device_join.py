@@ -697,11 +697,12 @@ def compile_fragment(root, leaves, joins, agg_plan, agg_conds, caps,
                            else (d, nl, idx, ext))
             return out
 
-        def run_vm(prog, idxmap, valid, nullmaps, what):
+        def run_vm(prog, idxmap, valid, nullmaps, what, finish=None):
             ins = inputs(prog, idxmap, valid, nullmaps)
             n = valid.shape[0]
-            _observe("vm", what=what, prog=prog, inputs=ins, n=n)
-            return vm.run(prog, ins, n, n, valid.device)
+            _observe("vm", what=what, prog=prog, inputs=ins, n=n,
+                     finish=finish)
+            return vm.run(prog, ins, n, n, valid.device, finish)
 
         def leaf_rel(leaf):
             if leaf_masks and leaf.leaf_id in leaf_masks:
@@ -780,14 +781,15 @@ def compile_fragment(root, leaves, joins, agg_plan, agg_conds, caps,
                 valid, nohit, n_valid = pr["valid"], pr["nohit"], pr["count"]
                 if progs[node.pos]["oc"] is not None and jkind == "left":
                     # ON-clause residuals are part of the MATCH for outer
-                    # joins — evaluate on the joined candidate row first
+                    # joins — evaluate on the joined candidate row first;
+                    # the same launch turns the refined match into the
+                    # kind's valid rows, no-match map and count
                     cand_idx = dict(pidx_map)
                     cand_idx.update(compose(bidx_map, bi))
-                    hit, _o = run_vm(progs[node.pos]["oc"], cand_idx,
-                                     pr["hit"], dict(pnull),
-                                     f"ON residual J{node.pos}")
-                    valid, nohit, n_valid = join_probe.finish(pvalid, hit,
-                                                              jkind)
+                    _hit, _o, (valid, nohit, n_valid) = run_vm(
+                        progs[node.pos]["oc"], cand_idx, pr["hit"],
+                        dict(pnull), f"ON residual J{node.pos}",
+                        finish=(pvalid, jkind))
                 if jkind in ("semi", "anti"):
                     overflows.append(n_valid)
                     return dict(pidx_map), valid, dict(pnull)

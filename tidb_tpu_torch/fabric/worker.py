@@ -73,8 +73,8 @@ DEVICE_ENV = "TIDB_TPU_TORCH_DEVICE"
 LOST_EXIT = 3
 #: the kernel modules whose LAUNCHES the drain summary reports
 LAUNCH_COUNTERS = ("expr_vm", "groupby_agg", "sort_topk", "join_probe",
-                   "join_expand", "merge_states", "window_scan",
-                   "radix_exchange", "shuffle_join")
+                   "join_expand", "join_match", "merge_states",
+                   "window_scan", "radix_exchange", "shuffle_join")
 
 
 def _parse_kv(raw: str) -> list:

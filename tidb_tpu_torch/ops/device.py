@@ -858,32 +858,8 @@ def _agg_entry(key_cols, key_nulls, val_cols, val_nulls, mask,
 _agg_kernel = _agg_entry
 
 # ---------------------------------------------------------------------------
-# two-pass sort join (K7): K4 orders the build keys, K5a counts the matches
-# of each probe row, K5b expands them into (probe, build) pairs
+# the standalone join match (K7, ops/kernels/join_match.py)
 # ---------------------------------------------------------------------------
-
-def _join_count_impl(build_key, probe_key, build_null, probe_valid,
-                     n_build_valid):
-    """Pass 1: order the build side (non-NULL keys first, by key, stable;
-    K4) and count each probe row's matches among them (K5a's sorted probe,
-    which gathers the keys in that order once; bounds clamped to the
-    non-NULL prefix).  Returns (order, pos0, cnt, total)."""
-    from .kernels import join_probe, sort_topk
-    order = sort_topk.valid_first_order(build_key, build_null)
-    pr = join_probe.probe([probe_key], [None], probe_valid, None, build_key,
-                          None, n_build_valid, layout="sorted",
-                          mode="count", order=order)
-    return order, pr["pos0"], pr["cnt"], pr["count"]
-
-
-def _join_expand_impl(order, pos0, cnt, total: int):
-    """Pass 2 (exact total from pass 1): (probe_idx, build_idx, keep) over
-    `total` slots (K5b)."""
-    from .kernels import join_expand
-    out = join_expand.expand(cnt, pos0, None, order, order.shape[0], None,
-                             total)
-    return out["pi"], out["bi"], out["valid"]
-
 
 def device_join_match(build_keys, probe_keys):
     """Mirror of ops.host.join_match with device kernels. build_keys /
@@ -891,22 +867,18 @@ def device_join_match(build_keys, probe_keys):
     (the caller combines multi-column keys via host factorization).
     Returns numpy (probe_idx, build_idx): probe-major, each probe row's
     build rows in (key, row) order, NULL keys on either side matching
-    nothing — the reference's pairs (``tidb_tpu/ops/device.py:1506``)."""
+    nothing — the reference's pairs (``tidb_tpu/ops/device.py:1506``).
+    The keys go up, K7 matches them on the device, and the pairs come
+    back."""
+    from .kernels import join_match
     bk, bn = build_keys
     pk, pn = probe_keys
-    bn = np.asarray(bn, dtype=bool)
-    pn = np.asarray(pn, dtype=bool)
     if len(bk) == 0 or len(pk) == 0:
         return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
     d = device()
-    n_build_valid = int(np.count_nonzero(~bn))
-    order, pos0, cnt, total = _join_count_impl(
+    pi, bi = join_match.match(
         upload(np.asarray(bk, dtype=np.int64), d),
-        upload(np.asarray(pk, dtype=np.int64), d), upload(bn, d),
-        upload(~pn, d), n_build_valid)
-    total = int(total)
-    if total == 0:
-        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
-    probe_idx, build_idx, keep = _join_expand_impl(order, pos0, cnt, total)
-    keep = keep.cpu().numpy()
-    return probe_idx.cpu().numpy()[keep], build_idx.cpu().numpy()[keep]
+        upload(np.asarray(bn, dtype=bool), d),
+        upload(np.asarray(pk, dtype=np.int64), d),
+        upload(~np.asarray(pn, dtype=bool), d))
+    return pi.cpu().numpy(), bi.cpu().numpy()

@@ -2,7 +2,8 @@
 PyTorch version:
 
 ``expr_vm``     K2/K3 — the expression VM (filter mask, group keys and
-                aggregate inputs of a scan-aggregate fragment);
+                aggregate inputs of a scan-aggregate fragment; with an
+                epilogue, K5a's finish of a join's ON residual);
 ``groupby_agg`` K1 — the masked GROUP BY aggregate;
 ``sort_topk``   K4 — multi-key sort for top-k and group order, and the
                 whole valid-first key order of a sort join;
@@ -10,6 +11,9 @@ PyTorch version:
                 lookup, unique / count / existence modes);
 ``join_expand`` K5b — the CSR expansion, post-join compaction and join
                 totals (a hand-written scan);
+``join_match``  K7 — the standalone join match: the build side indexed
+                on the card in K6's layout, a unique dense build probed
+                and its pairs compacted in one launch;
 ``merge_states`` K8/K9 — the fold of partial aggregate states (the
                 streamed aggregate's, the paged and hybrid joins', the
                 mesh's): one merge of the states' sorted live runs;

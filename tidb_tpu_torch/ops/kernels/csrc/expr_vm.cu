@@ -87,6 +87,18 @@ struct VmArgs {
   i64* out_data[VM_MAX_OUT];
   unsigned char* out_null[VM_MAX_OUT];
   unsigned char in_dtype[VM_MAX_IN];
+  // the join finish epilogue (fin_kind >= 0, a join kind): the mask is a
+  // join's match flag, and each row also gets the kind's valid flag from
+  // fin_pvalid (null: every row valid) and the no-match flag; the valid
+  // rows are counted into *fin_count through fin_status (a ticket, then a
+  // count for each of fin_slots blocks: all 0 between launches)
+  int fin_kind;
+  int fin_slots;
+  const unsigned char* fin_pvalid;
+  unsigned char* fin_valid;
+  unsigned char* fin_nohit;
+  i64* fin_count;
+  u64* fin_status;
 };
 
 __device__ __forceinline__ double as_f(i64 v) { return __longlong_as_double(v); }
@@ -223,6 +235,38 @@ __device__ __forceinline__ void load_rows(const void* d, int dtype,
     case 4: GATHER(unsigned char, AS_I64);
     case 5: GATHER(short, AS_I64);
     default: GATHER(signed char, AS_I64);
+  }
+}
+
+// The epilogue's count.  Each tile's warps add their valid rows to their
+// block's slot of fin_status (one atomic a warp and tile, no state kept
+// across the program's instructions); the block that takes the last
+// ticket sums and clears the slots, through the shared register file (no
+// tile uses it any more), writes the count and clears the ticket.  Every
+// thread of the block calls it.
+__device__ __forceinline__ void finish_count(const VmArgs& a, i64* part) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  __threadfence();  // this block's slot adds, before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const u64 t = atomicAdd((unsigned long long*)&a.fin_status[0], 1ull);
+    part[0] = t == (u64)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!part[0]) return;
+  __threadfence();
+  i64 s = 0;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += VM_THREADS)
+    s += (i64)atomicExch((unsigned long long*)&a.fin_status[1 + b], 0ull);
+  s = warp_sum_i64(s);
+  __syncthreads();
+  if (lane == 0) part[1 + w] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    i64 total = 0;
+    for (int i = 0; i < VM_THREADS / 32; ++i) total += part[1 + i];
+    *a.fin_count = total;
+    atomicExch((unsigned long long*)&a.fin_status[0], 0ull);
   }
 }
 
@@ -408,11 +452,30 @@ expr_vm_kernel(const VmArgs a) {
         default: break;
       }
     }
+    unsigned vbits = 0;  // the finish's valid rows, bit k for row k
     ROWS {
       const i64 row = row0 + (i64)k * VM_THREADS;
-      if (row < a.n) a.mask[row] = (keep >> k) & 1u;
+      if (row < a.n) {
+        const bool h = (keep >> k) & 1u;
+        a.mask[row] = h;
+        if (a.fin_kind >= 0) {
+          const bool pv = a.fin_pvalid ? a.fin_pvalid[row] != 0 : true;
+          const bool v = kind_valid(a.fin_kind, pv, h);
+          a.fin_valid[row] = v;
+          a.fin_nohit[row] = !h;
+          vbits |= (unsigned)v << k;
+        }
+      }
+    }
+    if (a.fin_kind >= 0) {
+      int c = 0;
+      ROWS c += __popc(__ballot_sync(0xffffffffu, (vbits >> k) & 1u));
+      if ((threadIdx.x & 31) == 0 && c)
+        atomicAdd((unsigned long long*)&a.fin_status[1 + blockIdx.x],
+                  (unsigned long long)c);
     }
   }
+  if (a.fin_kind >= 0) finish_count(a, V);
 }
 
 // hdr layout (int64), mirrored by ops/kernels/expr_vm.py pack_args:
@@ -420,9 +483,13 @@ expr_vm_kernel(const VmArgs a) {
 //  7 stage (expr_vm_kernel's STAGE), 8 shared bytes, 9 n_in, 10 n_out,
 //  11 prog, 12 ci, 13 cf, 14 mask,
 //  16 + 5 i: input i's data, nulls, dtype code, row index, null mask;
-//  16 + 5 VM_MAX_IN + 2 s: output s's data, nulls.
+//  16 + 5 VM_MAX_IN + 2 s: output s's data, nulls;
+//  HDR_FIN: the finish epilogue's join kind (-1: none), validity, valid
+//  and no-match flags, count, status (1 + slots int64 words, zeroed once)
+//  and slots (at least the launch's blocks).
 #define HDR_IN 16
 #define HDR_OUT (HDR_IN + 5 * VM_MAX_IN)
+#define HDR_FIN (HDR_OUT + 2 * VM_MAX_OUT)
 
 static int make_args(const i64* h, VmArgs* a, int* rpt, int* stage,
                      size_t* shared) {
@@ -457,6 +524,17 @@ static int make_args(const i64* h, VmArgs* a, int* rpt, int* stage,
     a->out_data[s] = on ? (i64*)h[HDR_OUT + 2 * s] : nullptr;
     a->out_null[s] = on ? (unsigned char*)h[HDR_OUT + 2 * s + 1] : nullptr;
   }
+  a->fin_kind = (int)h[HDR_FIN];
+  a->fin_pvalid = (const unsigned char*)h[HDR_FIN + 1];
+  a->fin_valid = (unsigned char*)h[HDR_FIN + 2];
+  a->fin_nohit = (unsigned char*)h[HDR_FIN + 3];
+  a->fin_count = (i64*)h[HDR_FIN + 4];
+  a->fin_status = (u64*)h[HDR_FIN + 5];
+  a->fin_slots = (int)h[HDR_FIN + 6];
+  if (a->fin_kind > JK_ANTI ||
+      (a->fin_kind >= 0 && (!a->fin_count || !a->fin_status ||
+                            (a->n > 0 && (!a->fin_valid || !a->fin_nohit)))))
+    return (int)cudaErrorInvalidValue;
   return 0;
 }
 
@@ -491,6 +569,7 @@ static int launch(const VmArgs& a, size_t shared, cudaStream_t st) {
   const i64 wave = (i64)per_sm[dev] * sms[dev];
   const i64 tiles = (a.n + (i64)VM_THREADS * RPT - 1) / ((i64)VM_THREADS * RPT);
   const i64 grid = tiles < wave ? tiles : wave;
+  if (a.fin_kind >= 0 && grid > a.fin_slots) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)grid, VM_THREADS, shared, st>>>(a);
   return (int)cudaGetLastError();
 }
@@ -511,8 +590,11 @@ extern "C" int expr_vm_run(const i64* hdr, void* stream) {
   size_t shared;
   int rc = make_args(hdr, &a, &rpt, &stage, &shared);
   if (rc) return rc;
-  if (a.n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (a.n <= 0) {
+    if (a.fin_kind < 0) return 0;
+    return (int)cudaMemsetAsync(a.fin_count, 0, sizeof(i64), st);
+  }
   switch (stage) {
     case 0: return launch_rpt<0>(a, rpt, shared, st);
     case 1: return launch_rpt<1>(a, rpt, shared, st);

@@ -27,12 +27,12 @@
 //
 // Design: two launches an expansion, one a count.
 //   je_scan   - a single-pass exclusive scan of cnt_eff by decoupled
-//               look-back: each block of 1024 threads takes the next tile
-//               of 8192 rows (one atomic add on a tile counter, so every
-//               tile it waits on is already running), scans it, publishes
-//               the tile's sum, and warp 0 looks back over the tiles
-//               before it, 32 at a time, until one has published its
-//               inclusive prefix.  It writes each row's offset and the
+//               look-back (common.cuh lb_*): each block of 1024 threads
+//               takes the next tile of 8192 rows (one atomic add on a tile
+//               counter, so every tile it waits on is already running),
+//               scans it, publishes the tile's sum, and warp 0 looks back
+//               over the tiles before it, 32 at a time, until one has
+//               published its inclusive prefix.  It writes each row's offset and the
 //               exact total (the last tile).  A count sums its tiles and
 //               the last block to finish adds the sums.  Status words
 //               carry the call's epoch, so no launch clears them.
@@ -50,16 +50,14 @@
 #include "common.cuh"
 
 #define JE_MAX_MAPS 16
-#define JE_SCAN_THREADS 1024
-#define JE_SCAN_WARPS (JE_SCAN_THREADS / 32)
+#define JE_SCAN_THREADS LB_THREADS
+#define JE_SCAN_WARPS LB_WARPS
 #define JE_ITEMS 8                             // rows a thread scans
 #define JE_TILE (JE_SCAN_THREADS * JE_ITEMS)   // rows a scan tile
 #define JE_THREADS 256                         // the expansion's blocks
 #define JE_SLOTS 4                             // slots a thread expands
 #define JE_STILE (JE_THREADS * JE_SLOTS)       // slots an expansion tile
 #define JE_RMAX 4096                           // rows staged for one tile
-#define JE_AGG 1u
-#define JE_INCL 2u
 
 typedef unsigned int u32;
 
@@ -78,14 +76,10 @@ struct ExpandArgs {
   i64 cap;
   i64* off;    // each row's exclusive offset (null: a count)
   i64* total;
-  // scan status, per tile: flag (epoch << 2 | state), aggregate, inclusive
-  // prefix; ctr: the tiles taken so far in this call (the block that takes
-  // the last one sets it back to 0)
-  u64* flag;
-  i64* agg;
-  i64* incl;
+  // scan status, per tile (common.cuh LookBack); ctr: the tiles taken so
+  // far in this call (the block that takes the last one sets it back to 0)
+  LookBack lb;
   u64* ctr;
-  u64 epoch;
   i64* pi;
   i64* bi;
   unsigned char* valid;
@@ -106,54 +100,8 @@ __device__ __forceinline__ i64 cnt_eff(const ExpandArgs& a, i64 i) {
 
 // -- the scan -------------------------------------------------------------------
 
-__device__ __forceinline__ void je_publish(const ExpandArgs& a, i64 t, u32 state,
-                                           i64 v) {
-  if (state == JE_INCL)
-    *(volatile i64*)&a.incl[t] = v;
-  else
-    *(volatile i64*)&a.agg[t] = v;
-  __threadfence();
-  *(volatile u64*)&a.flag[t] = (a.epoch << 2) | state;
-}
-
-__device__ __forceinline__ i64 warp_sum_all(i64 v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Warp 0: the exclusive prefix of tile t, whose own sum is `sum`.
-__device__ i64 je_lookback(const ExpandArgs& a, i64 t, i64 sum) {
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) je_publish(a, t, t == 0 ? JE_INCL : JE_AGG, sum);
-  if (t == 0) return 0;
-  i64 excl = 0;
-  for (i64 top = t - 1;; top -= 32) {
-    const i64 p = top - lane;
-    u32 state = JE_INCL;
-    i64 v = 0;
-    if (p >= 0) {
-      u64 f;
-      do {
-        f = *(volatile u64*)&a.flag[p];
-      } while ((f >> 2) != a.epoch);
-      __threadfence();
-      state = (u32)(f & 3);
-      v = state == JE_INCL ? *(volatile i64*)&a.incl[p]
-                           : *(volatile i64*)&a.agg[p];
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, state == JE_INCL);
-    const int stop = m ? __ffs(m) - 1 : 31;
-    excl += warp_sum_all(lane <= stop ? v : 0);
-    if (m) break;
-  }
-  if (lane == 0) je_publish(a, t, JE_INCL, excl + sum);
-  return excl;
-}
-
 __global__ void __launch_bounds__(JE_SCAN_THREADS) je_scan(ExpandArgs a) {
-  __shared__ i64 s_tile;
-  __shared__ i64 s_wtot[JE_ITEMS][JE_SCAN_WARPS];  // then their prefixes
-  __shared__ i64 s_ctot[JE_ITEMS];
+  __shared__ i64 s_wtot[JE_SCAN_WARPS];
   __shared__ i64 s_prefix;
   __shared__ int s_last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -173,12 +121,12 @@ __global__ void __launch_bounds__(JE_SCAN_THREADS) je_scan(ExpandArgs a) {
       sum += r < a.n ? cnt_eff(a, r) : 0;
     }
     sum = warp_sum_all(sum);
-    if (lane == 0) s_wtot[0][warp] = sum;
+    if (lane == 0) s_wtot[warp] = sum;
     __syncthreads();
     if (tid == 0) {
       i64 t = 0;
-      for (int w = 0; w < JE_SCAN_WARPS; ++w) t += s_wtot[0][w];
-      *(volatile i64*)&a.agg[blockIdx.x] = t;
+      for (int w = 0; w < JE_SCAN_WARPS; ++w) t += s_wtot[w];
+      *(volatile i64*)&a.lb.agg[blockIdx.x] = t;
       __threadfence();
       const u64 done = atomicAdd((unsigned long long*)a.ctr, 1ull);
       s_last = done == (u64)(n_tiles - 1);
@@ -188,65 +136,30 @@ __global__ void __launch_bounds__(JE_SCAN_THREADS) je_scan(ExpandArgs a) {
     __threadfence();
     i64 t = 0;
     for (i64 i = tid; i < n_tiles; i += JE_SCAN_THREADS)
-      t += *(volatile i64*)&a.agg[i];
+      t += *(volatile i64*)&a.lb.agg[i];
     t = warp_sum_all(t);
     __syncthreads();
-    if (lane == 0) s_wtot[0][warp] = t;
+    if (lane == 0) s_wtot[warp] = t;
     __syncthreads();
     if (tid == 0) {
       i64 total = 0;
-      for (int w = 0; w < JE_SCAN_WARPS; ++w) total += s_wtot[0][w];
+      for (int w = 0; w < JE_SCAN_WARPS; ++w) total += s_wtot[w];
       *a.total = total;
       *(volatile u64*)a.ctr = 0;
     }
     return;
   }
-  // tiles in the order blocks start, so every tile a block waits on is
-  // already running; every block takes one, and the last taker leaves the
-  // counter at 0 for the next call on the stream
-  if (tid == 0) {
-    const i64 t = (i64)atomicAdd((unsigned long long*)a.ctr, 1ull);
-    if (t == n_tiles - 1) atomicExch((unsigned long long*)a.ctr, 0ull);
-    s_tile = t;
-  }
-  __syncthreads();
-  const i64 t = s_tile;
+  const i64 t = lb_take_tile(a.ctr, n_tiles);
   const i64 base = t * JE_TILE;
-  i64 ex[JE_ITEMS];
-  // row base + j * JE_SCAN_THREADS + tid: loads and stores stay coalesced,
-  // and the rows of one j are scanned across the block
+  i64 v[JE_ITEMS], ex[JE_ITEMS];
 #pragma unroll
   for (int j = 0; j < JE_ITEMS; ++j) {
     const i64 r = base + (i64)j * JE_SCAN_THREADS + tid;
-    const i64 v = r < a.n ? cnt_eff(a, r) : 0;
-    i64 x = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const i64 u = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += u;
-    }
-    ex[j] = x - v;  // exclusive, within the warp
-    if (lane == 31) s_wtot[j][warp] = x;
+    v[j] = r < a.n ? cnt_eff(a, r) : 0;
   }
-  __syncthreads();
-  if (warp < JE_ITEMS) {  // warp j: the exclusive prefix of j's warp totals
-    const i64 w = s_wtot[warp][lane];
-    i64 x = w;
-    for (int o = 1; o < 32; o <<= 1) {
-      const i64 u = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += u;
-    }
-    s_wtot[warp][lane] = x - w;
-    if (lane == 31) s_ctot[warp] = x;
-  }
-  __syncthreads();
-  i64 run = 0;
-#pragma unroll
-  for (int j = 0; j < JE_ITEMS; ++j) {
-    ex[j] += run + s_wtot[j][warp];  // exclusive, within the tile
-    run += s_ctot[j];
-  }
+  const i64 run = lb_tile_scan(v, ex);
   if (warp == 0) {
-    const i64 pre = je_lookback(a, t, run);
+    const i64 pre = lb_exclusive(a.lb, t, run);
     if (lane == 0) s_prefix = pre;
   }
   __syncthreads();
@@ -429,7 +342,7 @@ extern "C" int join_expand_run(const i64* hdr, void* stream) {
   a.total = (i64*)hdr[13];
   i64* status = (i64*)hdr[14];
   const i64 status_tiles = hdr[15];
-  a.epoch = (u64)hdr[16];
+  a.lb.epoch = (u64)hdr[16];
   a.pi = (i64*)hdr[17];
   a.bi = (i64*)hdr[18];
   a.valid = (unsigned char*)hdr[19];
@@ -437,15 +350,15 @@ extern "C" int join_expand_run(const i64* hdr, void* stream) {
   const int count_only = (int)hdr[21];
   a.n_maps = (int)hdr[22];
   a.ctr = (u64*)status;
-  a.flag = (u64*)(status + 1);
-  a.agg = status + 1 + status_tiles;
-  a.incl = status + 1 + 2 * status_tiles;
+  a.lb.flag = (u64*)(status + 1);
+  a.lb.agg = status + 1 + status_tiles;
+  a.lb.incl = status + 1 + 2 * status_tiles;
   const i64 n_tiles = (a.n + JE_TILE - 1) / JE_TILE;
   if (a.n_maps < 0 || a.n_maps > JE_MAX_MAPS) return (int)cudaErrorInvalidValue;
   // no probe rows: every slot is past the total, and no input is read
   if (a.n > 0 && (a.build ? (!a.cnt || !a.pos0 || !a.a1) : !a.cmask))
     return (int)cudaErrorInvalidValue;
-  if (status_tiles < n_tiles || a.epoch < 1)
+  if (status_tiles < n_tiles || a.lb.epoch < 1)
     return (int)cudaErrorInvalidValue;
   for (int m = 0; m < a.n_maps; ++m) {
     const i64* h = hdr + 23 + 4 * m;

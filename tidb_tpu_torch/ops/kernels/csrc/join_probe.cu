@@ -6,7 +6,7 @@
 // gather at :776-808 of compile_fragment.run; the searchsorted count pass
 // of tidb_tpu/ops/device.py:1473 _join_count_impl.
 //
-// Three entries:
+// Two entries:
 //   join_range_run  - the data-dependent key packing of two relations:
 //                     per key column min/max over both sides' valid rows,
 //                     spans, the float64 span-overflow flag, both sides'
@@ -23,9 +23,10 @@
 //                     of a non-unique one and the total of the counts, or
 //                     existence; with the join kind's valid rows, the left
 //                     join's no-match map and the valid count.  A row
-//                     without a match has pos0 = 0 and bi = 0;
-//   join_finish_run - valid rows, no-match map and count from a match flag
-//                     refined by ON-clause residuals.
+//                     without a match has pos0 = 0 and bi = 0.
+// The same valid rows, no-match map and count from a match flag that an ON
+// clause's residuals refined come from the expression VM's epilogue
+// (csrc/expr_vm.cu), in the launch that refines the flag.
 //
 // Bound on the card: memory.  Each probe row reads its key columns, null
 // flags and validity once and writes its outputs once; every lookup into
@@ -51,7 +52,6 @@
 #define JP_MAX_KEYS 8
 
 enum { JP_UNIQ = 0, JP_COUNT = 1, JP_EXISTS = 2 };
-enum { JK_INNER = 0, JK_LEFT = 1, JK_SEMI = 2, JK_ANTI = 3 };
 
 // --------------------------------------------------------------------------
 // key range: _combined_join_keys
@@ -95,21 +95,6 @@ __global__ void jr_init(RangeArgs a) {
     *a.nbv = 0;
     *a.ovf = 0;
   }
-}
-
-__device__ __forceinline__ i64 warp_min(i64 v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const i64 w = __shfl_down_sync(0xffffffffu, v, o);
-    v = w < v ? w : v;
-  }
-  return v;
-}
-__device__ __forceinline__ i64 warp_max(i64 v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const i64 w = __shfl_down_sync(0xffffffffu, v, o);
-    v = w > v ? w : v;
-  }
-  return v;
 }
 
 __global__ void jr_minmax(RangeArgs a) {
@@ -264,10 +249,6 @@ struct ProbeArgs {
   i64* cnt;
   i64* count;
 };
-
-__device__ __forceinline__ bool kind_valid(int kind, bool pv, bool h) {
-  return kind == JK_LEFT ? pv : (kind == JK_ANTI ? (pv && !h) : (pv && h));
-}
 
 // Row r's packed key and whether it can match at all: valid, no NULL key
 // column, every column inside its pack range.
@@ -504,36 +485,4 @@ extern "C" int join_probe_run(const i64* hdr, void* stream) {
     if (e != cudaSuccess) return (int)e;
   }
   return launch_sorted(a, st);
-}
-
-// --------------------------------------------------------------------------
-// finish: valid rows after ON-clause residuals refined the match flag
-// --------------------------------------------------------------------------
-
-__global__ void jp_finish(i64 n, const unsigned char* pvalid,
-                          const unsigned char* hit, int kind,
-                          unsigned char* valid, unsigned char* nohit,
-                          i64* count) {
-  i64 local = 0;
-  for (i64 r = (i64)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += (i64)gridDim.x * blockDim.x) {
-    const bool pv = pvalid ? pvalid[r] != 0 : true;
-    const bool h = hit[r] != 0;
-    const bool v = kind_valid(kind, pv, h);
-    valid[r] = v;
-    if (nohit) nohit[r] = !h;
-    local += v;
-  }
-  if (count) block_add_to(local, count);
-}
-
-// hdr (int64): [n, pvalid, hit, kind, valid, nohit, count]
-extern "C" int join_finish_run(const i64* hdr, void* stream) {
-  const i64 n = hdr[0];
-  if (n <= 0) return 0;
-  jp_finish<<<grid_for(n), TIDB_THREADS, 0, (cudaStream_t)stream>>>(
-      n, (const unsigned char*)hdr[1], (const unsigned char*)hdr[2],
-      (int)hdr[3], (unsigned char*)hdr[4], (unsigned char*)hdr[5],
-      (i64*)hdr[6]);
-  return (int)cudaGetLastError();
 }

@@ -20,6 +20,12 @@ Two executors run the same program:
 * :func:`interpret` (CPU tensors, and the reference the card's kernel is
   held to): the program run instruction by instruction on whole columns.
 
+With ``finish=(pvalid, kind)`` the mask is a join's match flag (an ON
+clause's residuals refining a probe's) and the same launch also writes
+K5a's finish of it — the join kind's valid rows, the no-match map and
+their count (``join_probe.finish_plain``; the reference's
+``tidb_tpu/executor/device_join.py:779-807``).
+
 An input slot is ``(data, nulls)`` over the program's rows, or ``(data,
 nulls, idx, ext)``: a column of another relation read through the int64
 row-index tensor ``idx`` (None: the row itself) with the bool mask ``ext``
@@ -77,10 +83,15 @@ REG_BUDGET = 56 * 1024
 STAGE_NONE, STAGE_PROG, STAGE_ALL = 0, 1, 2
 #: the constant tables are staged up to this size
 STAGE_CONST_MAX = 16 * 1024
-#: csrc/expr_vm.cu make_args: the header's layout (int64 words)
+#: csrc/expr_vm.cu make_args: the header's layout (int64 words), the join
+#: finish epilogue's seven words last
 HDR_IN = 16
 HDR_OUT = HDR_IN + 5 * MAX_IN
-HDR_LEN = HDR_OUT + 2 * MAX_OUT
+HDR_FIN = HDR_OUT + 2 * MAX_OUT
+HDR_LEN = HDR_FIN + 7
+#: the finish epilogue's count slots a multiprocessor: one a resident
+#: block of the persistent grid (2048 threads a multiprocessor)
+FIN_SLOTS_PER_SM = 2048 // VM_THREADS
 #: csrc/expr_vm.cu F_*: flag bits above the opcode in the kernel's stream
 F_A, F_B, F_C, F_WB = 1, 2, 4, 8
 #: operand count of each opcode (STORE and MASK read one, make none)
@@ -101,8 +112,10 @@ DTYPE_CODES = {torch.int64: 0, torch.int32: 1, torch.float64: 2,
                torch.float32: 3, torch.bool: 4, torch.uint8: 4,
                torch.int16: 5, torch.int8: 6}
 
-#: launches of the CUDA kernel (chip_smoke.py reads it to prove the path)
+#: launches of the CUDA kernel, and of those with the join finish
+#: epilogue (chip_smoke.py reads them to prove the path)
 LAUNCHES = [0]
+FINISH_LAUNCHES = [0]
 
 
 class Node:
@@ -520,10 +533,12 @@ def gathered_slots(inputs) -> frozenset:
                                           or inp[3] is not None))
 
 
-def interpret(prog: Program, inputs, n: int, n_live: int, dev=None):
+def interpret(prog: Program, inputs, n: int, n_live: int, dev=None,
+              finish=None):
     """Run `prog` on whole columns with torch ops.  `inputs`: (data,
     nulls) or (data, nulls, idx, ext) per input slot (see the module
-    note).  Returns (mask, [(data, nulls)] per output)."""
+    note).  Returns (mask, [(data, nulls)] per output), and with `finish`
+    a third item: :func:`run`'s join finish."""
     if dev is None:
         dev = inputs[0][0].device if inputs else torch.device("cpu")
     prog = prog.gathered(gathered_slots(inputs))
@@ -656,6 +671,9 @@ def interpret(prog: Program, inputs, n: int, n_live: int, dev=None):
             mask = mask & (d != 0) & ~nl
         else:
             raise AssertionError(name)
+    if finish is not None:
+        from .join_probe import finish_plain
+        return mask, outs, finish_plain(finish[0], mask, finish[1])
     return mask, outs
 
 
@@ -694,13 +712,15 @@ def launch_plan(n_regs: int, n_instr: int, n_ci: int, n_cf: int,
     return rpt, STAGE_PROG, prog
 
 
-def pack_args(n, n_live, counts, plan, tables, mask, ins, outs):
+def pack_args(n, n_live, counts, plan, tables, mask, ins, outs, fin=None):
     """The int64 header csrc/expr_vm.cu ``make_args`` turns into the
     kernel's by-value arguments.  counts: (n_instr, n_regs, n_ci, n_cf);
     plan: :func:`launch_plan`'s; tables: the pointers of the instruction
     stream and the two constant tables; mask: the mask's pointer; ins: per
     input slot (data, nulls, dtype code, row index, null mask), pointers
-    0 where absent; outs: per output slot (data, nulls)."""
+    0 where absent; outs: per output slot (data, nulls); fin: the join
+    finish epilogue's (kind code, validity, valid, no-match, count,
+    status, slots), pointers 0 where absent, or None for none."""
     if len(ins) > MAX_IN or len(outs) > MAX_OUT:
         from ..device import DeviceUnsupported
         raise DeviceUnsupported(
@@ -713,6 +733,8 @@ def pack_args(n, n_live, counts, plan, tables, mask, ins, outs):
                         + tuple(tables) + (mask,))
     hdr[HDR_IN:HDR_IN + 5 * len(ins)] = [w for e in ins for w in e]
     hdr[HDR_OUT:HDR_OUT + 2 * len(outs)] = [w for e in outs for w in e]
+    hdr[HDR_FIN:HDR_LEN] = fin if fin is not None else (-1, 0, 0, 0, 0, 0,
+                                                        0)
     return hdr
 
 
@@ -730,13 +752,36 @@ def handed_on(prog: Program, inputs) -> frozenset:
         and inputs[j][1].dtype == torch.bool)
 
 
-def run(prog: Program, inputs, n: int, n_live: int, dev: torch.device):
+#: the finish epilogue's count words per (device, stream): a ticket and
+#: a count a block the grid can hold, zeroed once (each launch leaves them
+#: at 0)
+_FIN_STATUS: dict = {}
+
+
+def _fin_status(dev, stream: int) -> torch.Tensor:
+    st = _FIN_STATUS.get((dev, stream))
+    if st is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        st = _FIN_STATUS.setdefault(
+            (dev, stream), torch.zeros(1 + FIN_SLOTS_PER_SM * sms,
+                                       dtype=torch.int64, device=dev))
+    return st
+
+
+def run(prog: Program, inputs, n: int, n_live: int, dev: torch.device,
+        finish=None):
     """Evaluate `prog` over `inputs` (per input slot (data, nulls) tensors
     of length n, or (data, nulls, idx, ext) with idx / ext of length n) on
     `dev`: the CUDA kernel on a card, :func:`interpret` on the CPU.
-    Returns (mask, [(data, nulls)] per output slot)."""
+    Returns (mask, [(data, nulls)] per output slot).
+
+    `finish`, a (pvalid, kind) pair: the mask is a join's match flag
+    ``hit`` (an ON clause's residuals refining it), and the launch also
+    writes the join kind's ``(valid, nohit, count)`` — K5a's finish,
+    ``join_probe.finish_plain(pvalid, hit, kind)`` — as a third item:
+    pvalid a bool tensor of length n or None (every row valid)."""
     if dev.type == "cpu":
-        return interpret(prog, inputs, n, n_live, dev)
+        return interpret(prog, inputs, n, n_live, dev, finish)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     gathered = gathered_slots(inputs)
@@ -773,12 +818,36 @@ def run(prog: Program, inputs, n: int, n_live: int, dev: torch.device):
     vprog = prog.without_stores(skip).gathered(gathered)
     instrs, ci, cf = vprog.tables(dev)
     # the computed outputs' data in one buffer, their nulls and the mask
-    # in another
+    # (and the finish's valid and no-match flags and its count) in another
     made = [s for s in range(len(prog.out_kinds)) if s not in skip]
     data = torch.empty((len(made), n), dtype=torch.int64,
                        device=dev).unbind(0)
-    flags = torch.empty((len(made) + 1, n), dtype=torch.bool,
-                        device=dev).unbind(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fin, fin_out = None, None
+    if finish is None:
+        flags = torch.empty((len(made) + 1, n), dtype=torch.bool,
+                            device=dev).unbind(0)
+    else:
+        n_flags = len(made) + 3
+        at = -(-n_flags * n // 8) * 8
+        buf = torch.empty(at + 8, dtype=torch.uint8, device=dev)
+        flags = buf[:n_flags * n].view(torch.bool).view(n_flags,
+                                                        n).unbind(0)
+        pvalid, kind = finish
+        from .join_probe import KINDS
+        if pvalid is not None and (pvalid.device != dev
+                                   or pvalid.dtype != torch.bool
+                                   or pvalid.shape != (n,)
+                                   or not pvalid.is_contiguous()):
+            raise ValueError("expr_vm: the finish's validity must be a "
+                             "contiguous bool tensor of n rows on the "
+                             "program's device")
+        count = buf[at:].view(torch.int64)[0]
+        fin_out = (flags[-3], flags[-2], count)
+        status = _fin_status(dev, stream)
+        fin = (KINDS[kind], 0 if pvalid is None else pvalid.data_ptr(),
+               flags[-3].data_ptr(), flags[-2].data_ptr(), count.data_ptr(),
+               status.data_ptr(), status.shape[0] - 1)
     mask = flags[-1]
     outs = [tuple(inputs[prog.pass_in[s]][:2]) if s in skip else None
             for s in range(len(prog.out_kinds))]
@@ -792,10 +861,12 @@ def run(prog: Program, inputs, n: int, n_live: int, dev: torch.device):
                     (instrs.data_ptr(), ci.data_ptr(), cf.data_ptr()),
                     mask.data_ptr(), ins,
                     [(0, 0) if s in skip else (d.data_ptr(), nl.data_ptr())
-                     for s, (d, nl) in enumerate(outs)])
-    stream = torch.cuda.current_stream(dev).cuda_stream
+                     for s, (d, nl) in enumerate(outs)], fin)
     from . import build
     build.check(build.launch(dev, _kernel(), hdr.ctypes.data,
                              ctypes.c_void_p(stream)), "expr_vm_run")
     LAUNCHES[0] += 1
+    if fin_out is not None:
+        FINISH_LAUNCHES[0] += 1
+        return mask, outs, fin_out
     return mask, outs

@@ -6,7 +6,7 @@ Replaces ``tidb_tpu/executor/device_join.py:553 _combined_join_keys``,
 ``compile_fragment.run`` (``:743-808``), and the searchsorted count pass
 of ``tidb_tpu/ops/device.py:1473 _join_count_impl``.
 
-Three wrappers, each launching one entry of ``csrc/join_probe.cu`` for
+Two wrappers, each launching one entry of ``csrc/join_probe.cu`` for
 CUDA tensors and running its plain PyTorch version (``*_plain``) for CPU
 tensors:
 
@@ -19,9 +19,11 @@ tensors:
   a unique build, ``count`` the CSR start ``pos0`` and match count
   ``cnt``, ``exists`` the semi/anti existence test; ``uniq`` and
   ``exists`` also give the join kind's probe-shaped ``valid`` rows, the
-  left join's no-match map ``nohit`` and the count of valid rows;
-* :func:`finish` — ``valid`` / ``nohit`` / count from a match flag that
-  ON-clause residuals refined.
+  left join's no-match map ``nohit`` and the count of valid rows.
+
+:func:`finish_plain` gives ``valid`` / ``nohit`` / count from a match
+flag that ON-clause residuals refined; on the card the expression VM's
+launch that refines the flag writes them (``expr_vm.run``'s ``finish``).
 
 Index arrays (CSR starts, row ids) are taken as int32 or int64, as
 ``executor/join_index.py`` builds them; keys and counts are int64,
@@ -357,6 +359,8 @@ def probe(keys, knulls, pvalid, packs, a0, a1, nv, *, layout, mode,
 # -- finish -------------------------------------------------------------------
 
 def finish_plain(pvalid, hit, kind):
+    """(valid, nohit, count) of a join kind from the match flag `hit`
+    (inner and semi: pvalid ∧ hit; anti: pvalid ∧ ¬hit; left: pvalid)."""
     pv = (pvalid if pvalid is not None
           else torch.ones_like(hit, dtype=torch.bool))
     if kind == "left":
@@ -366,25 +370,3 @@ def finish_plain(pvalid, hit, kind):
     else:
         valid = pv & hit
     return valid, ~hit, valid.sum()
-
-
-def finish(pvalid, hit, kind):
-    """(valid, nohit, count) of a join kind from the match flag `hit`
-    (inner and semi: pvalid ∧ hit; anti: pvalid ∧ ¬hit; left: pvalid)."""
-    if hit.device.type == "cpu":
-        return finish_plain(pvalid, hit, kind)
-    dev = hit.device
-    _as_bool(hit, "match flag")
-    _as_bool(pvalid, "validity")
-    _cuda_checks(dev, [pvalid, hit])
-    n = hit.shape[0]
-    if pvalid is not None and pvalid.shape[0] != n:
-        raise ValueError("join_probe: validity and match flags differ in "
-                         "length")
-    valid = torch.empty(n, dtype=torch.bool, device=dev)
-    nohit = torch.empty(n, dtype=torch.bool, device=dev)
-    cnt1 = torch.zeros(1, dtype=torch.int64, device=dev)
-    _launch("join_finish_run", 2, [n, _ptr(pvalid), _ptr(hit), KINDS[kind],
-                                   _ptr(valid), _ptr(nohit), _ptr(cnt1)],
-            dev)
-    return valid, nohit, cnt1[0]
